@@ -1,0 +1,58 @@
+"""Host-side (numpy) operator helpers — a copy of the parts of
+:mod:`diffquantum_tpu.ops.linalg` the slice uses. They run once at problem
+construction, not on the hot path. Qubit 0 is the most significant bit of
+an amplitude index (the kron ordering)."""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+
+I2 = np.eye(2, dtype=np.complex128)
+X = np.array([[0.0, 1.0], [1.0, 0.0]], dtype=np.complex128)
+Y = np.array([[0.0, -1.0j], [1.0j, 0.0]], dtype=np.complex128)
+Z = np.array([[1.0, 0.0], [0.0, -1.0]], dtype=np.complex128)
+
+PAULIS = {"I": I2, "X": X, "Y": Y, "Z": Z}
+
+
+def find_state(final_state) -> tuple[int, np.ndarray]:
+    """Most-probable computational basis state and the Born distribution.
+    Accepts a CP pair (of tensors or arrays) or a complex vector."""
+    if hasattr(final_state, "re"):
+        re, im = (_host(final_state.re), _host(final_state.im))
+        prob = re.reshape(-1) ** 2 + im.reshape(-1) ** 2
+    else:
+        prob = np.abs(_host(final_state).reshape(-1)) ** 2
+    return int(np.argmax(prob)), prob
+
+
+def _host(a) -> np.ndarray:
+    if hasattr(a, "detach"):  # torch tensor, possibly on the card
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def uniform_superposition(n_qubits: int) -> np.ndarray:
+    """|+>^n as a dense vector."""
+    d = 2**n_qubits
+    return np.full((d,), 1.0 / np.sqrt(d), dtype=np.complex128)
+
+
+@functools.lru_cache(maxsize=None)
+def _zz_diag_cache(n_qubits: int, i: int, j: int) -> np.ndarray:
+    bits = np.arange(2**n_qubits)
+    bi = (bits >> (n_qubits - 1 - i)) & 1
+    bj = (bits >> (n_qubits - 1 - j)) & 1
+    return np.where(bi == bj, 1.0, -1.0)
+
+
+def zz_diagonal(n_qubits: int, i: int, j: int) -> np.ndarray:
+    """Diagonal of Z_i Z_j as a length-2^n real vector."""
+    return _zz_diag_cache(n_qubits, i, j)
+
+
+def z_diagonal(n_qubits: int, i: int) -> np.ndarray:
+    bits = np.arange(2**n_qubits)
+    bi = (bits >> (n_qubits - 1 - i)) & 1
+    return np.where(bi == 0, 1.0, -1.0)

@@ -1,0 +1,2 @@
+from .config import TrainConfig
+from .energy import TrainResult, make_optimizer, train_energy

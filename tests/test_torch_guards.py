@@ -1,0 +1,135 @@
+"""Guards of the PyTorch port: it imports neither JAX nor the JAX package,
+its entry points refuse to run on the CPU unless asked, what is not
+ported raises NotImplementedError instead of falling back, and
+chip_smoke.py fails without a card."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from diffquantum_tpu_torch import convert
+from diffquantum_tpu_torch.dynamics import hamiltonian as tham
+from diffquantum_tpu_torch.dynamics import product as tprod
+from diffquantum_tpu_torch.dynamics.propagator import evolve
+from diffquantum_tpu_torch.measure import Measurement
+from diffquantum_tpu_torch.models import maxcut as tmaxcut
+from diffquantum_tpu_torch.ops import linalg
+from diffquantum_tpu_torch.ops.cpx import CP
+from diffquantum_tpu_torch.pulses.envelope import SimpleEnvelope
+from diffquantum_tpu_torch.train.config import TrainConfig
+from diffquantum_tpu_torch.train.energy import train_energy
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == p or name.startswith(p + ".")
+               for p in ("jax", "jaxlib", "diffquantum_tpu"))
+
+
+def test_port_imports_no_jax():
+    files = sorted((REPO / "diffquantum_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 15
+    bad = []
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            if isinstance(node, ast.Import):
+                bad += [(f.name, a.name) for a in node.names
+                        if _forbidden(a.name)]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                if _forbidden(node.module or ""):
+                    bad.append((f.name, node.module))
+    assert not bad, bad
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("entry", ["build_maxcut", "init_coeff", "convert",
+                                   "measurement"])
+def test_entry_points_need_a_card_unless_asked(no_card, entry):
+    env = SimpleEnvelope(basis="bspline", n_basis=4, omegas=(1.0,))
+    call = {
+        "build_maxcut": lambda: tmaxcut.build_maxcut(
+            10, tmaxcut.ring_graph(10)),
+        "init_coeff": lambda: env.init_coeff(torch.Generator()),
+        "convert": lambda: convert.params_from_numpy(np.zeros((1, 4))),
+        "measurement": lambda: Measurement.create_diagonal(np.zeros(4)),
+    }[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+
+
+def _small_problem():
+    return tmaxcut.build_maxcut(10, tmaxcut.ring_graph(10), n_basis=4,
+                                device="cpu")
+
+
+@pytest.mark.parametrize("backend", ["expm", "apply", "packed", "mega",
+                                     "mega_hop"])
+def test_unported_backends_raise(backend):
+    p = _small_problem()
+    c = torch.zeros(p.envelope.coeff_shape)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        evolve(p.ham, p.envelope, c, p.psi0, 0.0, p.T, horizon=p.T,
+               n_steps=4, backend=backend)
+
+
+@pytest.mark.parametrize("n", [18, 19])
+def test_router_raises_past_the_streamed_band(n):
+    d = 2**n
+    ham = tham.ControlledHamiltonian.create_structured(
+        d, (tham.TermStructure(kind="diag", diag=linalg.zz_diagonal(n, 0, 1)),
+            tham.TermStructure(kind="1q", qubit=0, local=linalg.X)))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tprod.select_engine(ham)
+
+
+@pytest.mark.parametrize("what", ["mc", "fd", "cosine", "checkpoint",
+                                  "sampled", "dense", "batched", "create"])
+def test_unported_features_raise(what):
+    p = _small_problem()
+    cfg = TrainConfig(n_epoch=1)
+    run = lambda c: train_energy(p.ham, p.envelope, p.measurement,  # noqa
+                                 p.psi0, p.T, c)
+    call = {
+        "mc": lambda: run(cfg.replace(grad_mode="mc")),
+        "fd": lambda: run(cfg.replace(grad_mode="fd")),
+        "cosine": lambda: run(cfg.replace(lr_schedule="cosine")),
+        "checkpoint": lambda: run(cfg.replace(checkpoint_dir="ckpt")),
+        "sampled": lambda: tmaxcut.build_maxcut(
+            10, tmaxcut.ring_graph(10), sampling=True, device="cpu"),
+        "dense": lambda: tmaxcut.build_maxcut(
+            4, tmaxcut.ring_graph(4), dense=True, device="cpu"),
+        "batched": lambda: tprod.evolve_product_fused(
+            p.ham, p.envelope, torch.zeros(p.envelope.coeff_shape),
+            CP(p.psi0.re[None], p.psi0.im[None]), 0.0, p.T, horizon=p.T,
+            n_steps=4),
+        "create": lambda: tham.ControlledHamiltonian.create(
+            np.zeros((2, 2)), []),
+    }[what]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        call()
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_a_card(where, tmp_path):
+    script = REPO / "chip_smoke.py"
+    if where == "alone":
+        (tmp_path / "chip_smoke.py").write_text(script.read_text())
+        cwd, script = tmp_path, tmp_path / "chip_smoke.py"
+    else:
+        cwd = REPO
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
