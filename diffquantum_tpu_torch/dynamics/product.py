@@ -23,7 +23,7 @@ import torch
 
 from ..ops import cpx
 from ..ops.cpx import CP
-from ..ops.fused_product import diag_rows_device, diag_vec_device
+from ..ops.fused_product import MAX_QUBITS, diag_rows_device, diag_vec_device
 from .hamiltonian import ControlledHamiltonian
 
 _BAND_MSG = {
@@ -112,10 +112,6 @@ def _symmetrize_rots(qubits, kinds, theta_x, dim: int):
             torch.cat([half, torch.flip(half, dims=(dim,))], dim=dim))
 
 
-_VMEM_PACKED_MAX = 18    # the JAX package's packed band ends here
-_PACKED_MIN_QUBITS = 18  # and starts here
-
-
 def select_engine(ham: ControlledHamiltonian) -> str:
     """The routing table, as in the JAX package for 10-17 qubits:
 
@@ -158,9 +154,9 @@ def _select_engine_uncached(ham: ControlledHamiltonian) -> str:
             used.append(st.qubit)
         elif st.kind != "diag":
             return "xla"
-    if n >= _PACKED_MIN_QUBITS:
+    if n > MAX_QUBITS:  # the JAX package's 'packed' band is 18 qubits
         raise NotImplementedError(
-            _BAND_MSG["packed" if n <= _VMEM_PACKED_MAX else "mega"])
+            _BAND_MSG["packed" if n == MAX_QUBITS + 1 else "mega"])
     # a shared-qubit (palindromic) sequence doubles the op list
     doubled = 2 if len(set(used)) < len(used) else 1
     if n_rot * doubled > 128:
@@ -255,14 +251,10 @@ def evolve_product_fused(ham: ControlledHamiltonian, envelope,
         raise NotImplementedError(
             "the batched fused branch needs K2, not ported yet "
             "(ROADMAP.md, Queue 1 item 9)")
-    n = ham.n_qubits
-    if n >= _PACKED_MIN_QUBITS:
-        raise NotImplementedError(
-            _BAND_MSG["packed" if n <= _VMEM_PACKED_MAX else "mega"])
     theta_half, theta_x, qubits, kinds = fused_chain_inputs(
         ham, envelope, coeff, T0, T, horizon, n_steps, t_sample)
     return fused_product_evolve(psi0.astype(torch.float32), theta_half,
-                                theta_x, qubits, n, kinds,
+                                theta_x, qubits, ham.n_qubits, kinds,
                                 precision == "fast")
 
 

@@ -5,8 +5,7 @@ Every ``csrc/<name>.cu`` is compiled on its own into
 ``.gitignore``) at first use; the hash covers the source and the flags,
 so an edited source rebuilds and an unchanged one loads at once. Sources
 export a plain C interface, so no PyTorch header is compiled (seconds per
-file instead of minutes). Several sources build in parallel, one ``nvcc``
-each. Only sources inside the package are ever built.
+file instead of minutes). Only sources inside the package are ever built.
 """
 from __future__ import annotations
 
@@ -54,34 +53,27 @@ def _target(name: str) -> Path:
 
 def build_all(names=None) -> dict[str, BuildResult]:
     """Build the named sources (default: every ``csrc/*.cu``), one
-    ``nvcc`` process each, all started together. Raises with nvcc's
-    output if any build fails."""
+    ``nvcc`` each. Raises with nvcc's output if a build fails."""
     if names is None:
         names = sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    results, procs = {}, {}
+    results = {}
     for name in names:
         out = _target(name)
         if out.exists():
             results[name] = BuildResult(name, out, 0.0, "")
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC_DIR / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out, time.perf_counter())
-    failed = []
-    for name, (proc, tmp, out, t0) in procs.items():
-        log, _ = proc.communicate()
-        secs = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                               str(CSRC_DIR / f"{name}.cu")],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
         if proc.returncode != 0:
-            failed.append(f"nvcc failed for {name}.cu:\n{log}")
-            continue
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
         os.replace(tmp, out)
-        results[name] = BuildResult(name, out, secs, log)
-    if failed:
-        raise RuntimeError("\n".join(failed))
+        results[name] = BuildResult(name, out, time.perf_counter() - t0,
+                                    proc.stdout)
     return results
 
 

@@ -7,7 +7,10 @@ Runs ``diffquantum_tpu_torch.gradients.adjoint.energy_and_grad`` on the
 ``torch.profiler`` and prints: the card's name and power limit, the wall
 time per step, the device time per step by kernel (largest first), the
 number of kernel launches per step, and the device's busy and idle share
-of the window. Needs a CUDA card; imports nothing of JAX.
+of the profiled window. The profiler slows the host, so it then times the
+same steps with the profiler off and prints the idle share that the
+profiled device time leaves in that window: an estimate from two windows,
+labelled so. Needs a CUDA card; imports nothing of JAX.
 """
 import argparse
 import os
@@ -76,6 +79,15 @@ def main():
         print(f"  {dev_us / n:10.3f}  {count / n:6.2f}  {key[:90]}")
     if not rows:
         print("the profiler recorded no device time")
+
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    off_ms = (time.perf_counter() - t0) * 1e3 / n
+    print(f"wall per step {off_ms!r} ms over {n} steps (profiler off); "
+          f"idle share estimated from the two windows (profiled device "
+          f"busy over this wall) {1 - busy_ms / n / off_ms!r}")
 
 
 if __name__ == "__main__":
