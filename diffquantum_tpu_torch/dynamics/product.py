@@ -11,10 +11,20 @@ split stays second order.
 Two engines:
 - :func:`evolve_product`, the eager Strang engine in plain PyTorch (the
   JAX package runs this one in plain XLA), differentiable by autograd;
-- :func:`evolve_product_fused`, the whole chain as one K1 kernel launch
-  (:mod:`..ops.fused_product`) with the exact adjoint kernel behind it.
-  Only its single-state streamed branch (10-17 qubits) is ported; the
-  batched branch needs K2 (ROADMAP.md, Queue 1 item 9).
+- :func:`evolve_product_fused`, the whole chain as one kernel launch with
+  the exact adjoint kernel behind it (:mod:`..ops.fused_product`): K1 for
+  one state, K2 for a batch [B, d] (the streamed band, 10-17 qubits).
+
+Both take a batch of states with one coefficient set, per-member
+coefficients ``[G, n_controls, n_basis]`` and per-member time grids
+(``T0``/``T`` tensors of shape [G]), G dividing B: consecutive runs of
+B/G members share a coefficient set and grid. G = B is the JAX
+package's per-seed contract; G < B is how the MC estimator's branches
+share their pulses. The 18-24 qubit engines raise (ROADMAP.md, Queue 1
+items 15-16).
+
+:func:`apply_structured_terms` gives H_k psi for every control term,
+matrix-free, for the MC estimator's perturbation gates.
 """
 from __future__ import annotations
 
@@ -189,25 +199,38 @@ def _amplitudes(envelope, coeff, T0, T, horizon, n_steps, t_sample):
 
 
 def _control_rows(ham: ControlledHamiltonian, u: torch.Tensor, dtype):
-    """(u_diag, u_oneq, u_hop) rows of the amplitude table, in ``dtype``.
-    The index tensors are memoized on u's device: indexing with a Python
-    list would copy it to the card on every call."""
+    """(u_diag, u_oneq, u_hop) rows of the amplitude table u
+    [..., n_controls, T], in ``dtype``. The index tensors are memoized on
+    u's device: indexing with a Python list would copy it to the card on
+    every call."""
     key = ("rows", str(u.device))
     if key not in ham._memo:
         diag_idx, _, _, oneq_idx, _, _, hop_idx, _ = split_structure_ext(ham)
         ham._memo[key] = tuple(torch.tensor(idx, dtype=torch.long,
                                             device=u.device)
                                for idx in (diag_idx, oneq_idx, hop_idx))
-    return tuple(torch.index_select(u, 0, idx).to(dtype)
+    return tuple(torch.index_select(u, -2, idx).to(dtype)
                  for idx in ham._memo[key])
+
+
+def _group_dt(dt, dtype):
+    """dt as a [G, 1, 1] column in ``dtype`` when it is per group, else
+    as it is (a number or a 0-dim tensor)."""
+    if isinstance(dt, torch.Tensor) and dt.ndim:
+        return dt.to(dtype)[:, None, None]
+    return dt
 
 
 def fused_chain_inputs(ham: ControlledHamiltonian, envelope,
                        coeff: torch.Tensor, T0, T, horizon: float,
                        n_steps: int, t_sample: str = "left"):
-    """K1's inputs for one chain, in f32 on coeff's device:
-    (theta_half [T, d], theta_x [T, n_ops], op qubits, op kinds). Hop
-    angles are doubled and shared-qubit plans made palindromic here."""
+    """The fused kernels' inputs for one chain, in f32 on coeff's device:
+    (theta_half, theta_x, op qubits, op kinds). For one coefficient set
+    and scalar times, K1's tables theta_half [T, d] and theta_x
+    [T, n_ops]; for per-member coefficients [G, n_controls, n_basis] or
+    per-member times T0/T [G], K2's tables [T, G, d] and [T, G, n_ops].
+    Hop angles are doubled and shared-qubit plans made palindromic
+    here."""
     _, _, _, _, oneq_qubits, oneq_locals, _, hop_pairs = \
         split_structure_ext(ham)
     kinds = tuple(_pauli_kind(g) for g in oneq_locals)
@@ -220,16 +243,21 @@ def fused_chain_inputs(ham: ControlledHamiltonian, envelope,
     dt, u = _amplitudes(envelope, coeff, T0, T, horizon, n_steps, t_sample)
     diag_table, h0_vec = _tables(ham, rdt, u.device)
     u_diag, u_oneq, u_hop = _control_rows(ham, u, rdt)
-
-    theta_x = dt * u_oneq.T              # [T, n_x]
-    qubits = tuple(oneq_qubits)
+    qubits = tuple(oneq_qubits) + tuple(hop_pairs)
+    kinds += ("hop",) * len(hop_pairs)
+    one_chain = u.ndim == 2  # K1: u [k, T], the G = 1 case of K2's [G, k, T]
+    if one_chain:
+        u_diag, u_oneq, u_hop = (x[None] for x in (u_diag, u_oneq, u_hop))
+    dtg = _group_dt(dt, rdt)
+    theta_x = (dtg * u_oneq).permute(2, 0, 1)             # [T, G, n_x]
     if hop_pairs:  # kernel angle = 2 x (dt x u) on the {01, 10} subspace
-        qubits += tuple(hop_pairs)
-        kinds += ("hop",) * len(hop_pairs)
-        theta_x = torch.cat([theta_x, 2.0 * (dt * u_hop.T)], dim=1)
-    qubits, kinds, theta_x = _symmetrize_rots(qubits, kinds, theta_x, dim=1)
-    theta_half = 0.5 * dt * (h0_vec[None, :]
-                             + torch.matmul(u_diag.T, diag_table))
+        theta_x = torch.cat(
+            [theta_x, (2.0 * (dtg * u_hop)).permute(2, 0, 1)], dim=2)
+    qubits, kinds, theta_x = _symmetrize_rots(qubits, kinds, theta_x, dim=2)
+    theta_half = ((0.5 * dtg) * (h0_vec + torch.matmul(
+        u_diag.transpose(1, 2), diag_table))).transpose(0, 1)  # [T, G, d]
+    if one_chain:
+        theta_half, theta_x = theta_half[:, 0], theta_x[:, 0]
     return theta_half.contiguous(), theta_x.contiguous(), qubits, kinds
 
 
@@ -238,34 +266,58 @@ def evolve_product_fused(ham: ControlledHamiltonian, envelope,
                          horizon: float, n_steps: int, dt_bound=None,
                          precision: str = "full",
                          t_sample: str = "left") -> CP:
-    """Same math as :func:`evolve_product`, as one K1 launch (and one
-    adjoint launch for the gradient). Runs in f32. ``precision`` 'fast'
-    is accepted and computes what 'full' computes (K1 has no matmul to
-    truncate)."""
-    from ..ops.fused_product import fused_product_evolve
+    """Same math as :func:`evolve_product`, as one kernel launch (and one
+    adjoint launch for the gradient): K1 for a state [d], K2 for a batch
+    [B, d] (see the module note for per-member coefficients and times).
+    Runs in f32. ``precision`` 'fast' is accepted and computes what
+    'full' computes (the kernels have no matmul to truncate)."""
+    from ..ops.fused_product import (fused_product_evolve,
+                                     fused_product_evolve_batched)
 
     if precision not in ("full", "fast"):
         raise ValueError(f"precision must be 'full' or 'fast', "
                          f"got {precision!r}")
-    if psi0.ndim != 1:
-        raise NotImplementedError(
-            "the batched fused branch needs K2, not ported yet "
-            "(ROADMAP.md, Queue 1 item 9)")
+    if select_engine(ham) != "streamed":  # raises past the streamed band
+        raise ValueError("the fused engine does not take this Hamiltonian "
+                         "(select_engine gives 'xla'); use "
+                         "backend='product'")
     theta_half, theta_x, qubits, kinds = fused_chain_inputs(
         ham, envelope, coeff, T0, T, horizon, n_steps, t_sample)
-    return fused_product_evolve(psi0.astype(torch.float32), theta_half,
-                                theta_x, qubits, ham.n_qubits, kinds,
-                                precision == "fast")
+    fast = precision == "fast"
+    if psi0.ndim == 1:
+        if theta_half.ndim != 2:
+            raise ValueError("per-member coefficients or times need a "
+                             "batch of states [B, d]")
+        return fused_product_evolve(psi0.astype(torch.float32), theta_half,
+                                    theta_x, qubits, ham.n_qubits, kinds,
+                                    fast)
+    if psi0.ndim != 2:
+        raise ValueError(f"psi0 must be [d] or [B, d], got "
+                         f"{tuple(psi0.shape)}")
+    if theta_half.ndim == 2:  # one coefficient set for the whole batch
+        theta_half, theta_x = theta_half[:, None], theta_x[:, None]
+    return fused_product_evolve_batched(psi0.astype(torch.float32),
+                                        theta_half, theta_x, qubits,
+                                        ham.n_qubits, kinds, fast)
 
 
 # ---------------------------------------------------------------------------
 # the eager Strang engine
 # ---------------------------------------------------------------------------
 
+def _bcast(theta, k: int):
+    """An angle that is a number or per member [...] made to broadcast
+    against a state reshaped to [..., k more axes]."""
+    if not isinstance(theta, torch.Tensor) or theta.ndim == 0:
+        return theta
+    return theta.reshape(tuple(theta.shape) + (1,) * k)
+
+
 def apply_1q_pauli_rot(psi: CP, theta, qubit: int, n_qubits: int,
                        local: np.ndarray) -> CP:
     """exp(-i theta G) = cos(theta) I - i sin(theta) G for an involutory
-    2x2 generator G on tensor axis ``qubit`` (0 = MSB)."""
+    2x2 generator G on tensor axis ``qubit`` (0 = MSB). ``theta`` is a
+    number or one angle per leading index of psi."""
     lead = psi.re.shape[:-1]
     shape = lead + (2**qubit, 2, 2 ** (n_qubits - qubit - 1))
     pre, pim = psi.re.reshape(shape), psi.im.reshape(shape)
@@ -275,6 +327,7 @@ def apply_1q_pauli_rot(psi: CP, theta, qubit: int, n_qubits: int,
     mm = lambda m, x: torch.einsum("ab,...lbr->...lar", m, x)  # noqa: E731
     gre = mm(gr, pre) - mm(gi, pim)
     gim = mm(gr, pim) + mm(gi, pre)
+    theta = _bcast(theta, 3)
     c, s = torch.cos(theta), torch.sin(theta)
     # cos * psi - i sin * (G psi);  -i(a+ib) = b - ia
     out_re = c * pre + s * gim
@@ -282,12 +335,18 @@ def apply_1q_pauli_rot(psi: CP, theta, qubit: int, n_qubits: int,
     return CP(out_re.reshape(psi.re.shape), out_im.reshape(psi.im.shape))
 
 
-def apply_hop_rot(psi: CP, theta, qi: int, qj: int, n_qubits: int) -> CP:
-    """exp(-i theta (X_i X_j + Y_i Y_j)), qi < qj: rotates the {01, 10}
-    pair by 2 theta and leaves 00/11 untouched."""
+def _hop_slices(psi: CP, qi: int, qj: int, n_qubits: int):
     lead = psi.re.shape[:-1]
     shape = lead + (2**qi, 2, 2 ** (qj - qi - 1), 2, 2 ** (n_qubits - qj - 1))
-    pre, pim = psi.re.reshape(shape), psi.im.reshape(shape)
+    return psi.re.reshape(shape), psi.im.reshape(shape)
+
+
+def apply_hop_rot(psi: CP, theta, qi: int, qj: int, n_qubits: int) -> CP:
+    """exp(-i theta (X_i X_j + Y_i Y_j)), qi < qj: rotates the {01, 10}
+    pair by 2 theta and leaves 00/11 untouched. ``theta`` as in
+    :func:`apply_1q_pauli_rot`."""
+    pre, pim = _hop_slices(psi, qi, qj, n_qubits)
+    theta = _bcast(theta, 3)
     c, s = torch.cos(2.0 * theta), torch.sin(2.0 * theta)
     a_re, a_im = pre[..., :, 0, :, 1, :], pim[..., :, 0, :, 1, :]  # |01>
     b_re, b_im = pre[..., :, 1, :, 0, :], pim[..., :, 1, :, 0, :]  # |10>
@@ -302,6 +361,96 @@ def apply_hop_rot(psi: CP, theta, qi: int, qj: int, n_qubits: int) -> CP:
     return CP(z_re.reshape(psi.re.shape), z_im.reshape(psi.im.shape))
 
 
+def apply_hop_operator(psi: CP, qi: int, qj: int, n_qubits: int) -> CP:
+    """((X_i X_j + Y_i Y_j) psi): 2x subspace swap, zero on 00/11."""
+    pre, pim = _hop_slices(psi, qi, qj, n_qubits)
+
+    def swap2(x):
+        a, b = x[..., :, 0, :, 1, :], x[..., :, 1, :, 0, :]
+        zero = torch.zeros_like(a)
+        return torch.stack([torch.stack([zero, 2.0 * b], -2),
+                            torch.stack([2.0 * a, zero], -2)], -4)
+
+    return CP(swap2(pre).reshape(psi.re.shape),
+              swap2(pim).reshape(psi.im.shape))
+
+
+def apply_1q_operator(psi: CP, qubit: int, n_qubits: int,
+                      local_re: torch.Tensor,
+                      local_im: torch.Tensor) -> CP:
+    """(G psi) for a single-qubit operator G on tensor axis ``qubit``."""
+    lead = psi.re.shape[:-1]
+    shape = lead + (2**qubit, 2, 2 ** (n_qubits - qubit - 1))
+    pre, pim = psi.re.reshape(shape), psi.im.reshape(shape)
+    mm = lambda m, x: torch.einsum("ab,...lbr->...lar", m, x)  # noqa: E731
+    gre = mm(local_re, pre) - mm(local_im, pim)
+    gim = mm(local_re, pim) + mm(local_im, pre)
+    return CP(gre.reshape(psi.re.shape), gim.reshape(psi.im.shape))
+
+
+def _term_tables(ham: ControlledHamiltonian, dtype, device):
+    """Per control term, what :func:`apply_structured_terms` applies:
+    ('diag', row index), ('1q', qubit, local_re, local_im) or ('hop', qi,
+    qj), with the diagonal rows [n_diag_terms, d] and the 1q locals on
+    ``device``. Memoized per Hamiltonian: a host copy per call would
+    synchronise the stream."""
+    key = ("terms", dtype, str(device))
+    if key not in ham._memo:
+        diag_rows, plan = [], []
+        for st in ham.structure:
+            if st.kind == "diag":
+                plan.append(("diag", len(diag_rows)))
+                diag_rows.append(np.asarray(st.diag, dtype=np.float64))
+            elif st.kind == "1q":
+                g = np.asarray(st.local)
+                plan.append(("1q", st.qubit,
+                             torch.as_tensor(g.real, dtype=dtype,
+                                             device=device),
+                             torch.as_tensor(g.imag, dtype=dtype,
+                                             device=device)))
+            elif st.kind == "hop":
+                plan.append(("hop", min(st.qubit, st.qubit2),
+                             max(st.qubit, st.qubit2)))
+            else:
+                raise ValueError(f"unstructured term {st.kind!r}")
+        ham._memo[key] = (diag_rows_device(diag_rows, ham.dim, dtype,
+                                           device), plan)
+    return ham._memo[key]
+
+
+def apply_structured_terms(ham: ControlledHamiltonian, psi: CP):
+    """(H_k psi) for every control term k, matrix-free: (re, im), each
+    [n_controls, *psi.shape]. Used by the MC gradient estimator, whose
+    perturbation gates need H_k psi and no dense H_k."""
+    n = ham.n_qubits
+    rows, plan = _term_tables(ham, psi.re.dtype, psi.re.device)
+    res_re, res_im = [], []
+    for ent in plan:
+        if ent[0] == "diag":
+            res_re.append(rows[ent[1]] * psi.re)
+            res_im.append(rows[ent[1]] * psi.im)
+        elif ent[0] == "1q":
+            out = apply_1q_operator(psi, ent[1], n, ent[2], ent[3])
+            res_re.append(out.re)
+            res_im.append(out.im)
+        else:
+            out = apply_hop_operator(psi, ent[1], ent[2], n)
+            res_re.append(out.re)
+            res_im.append(out.im)
+    return torch.stack(res_re), torch.stack(res_im)
+
+
+def _to_members(x, b: int, axis: int = 0):
+    """Per-group values [G, ...] -> per-member [B, ...] (G divides B)."""
+    if not isinstance(x, torch.Tensor) or x.ndim == 0 or x.shape[axis] == b:
+        return x
+    g = x.shape[axis]
+    if b % g:
+        raise ValueError(f"{g} coefficient sets or time grids do not divide "
+                         f"a batch of {b} states")
+    return x.repeat_interleave(b // g, dim=axis)
+
+
 def evolve_product(ham: ControlledHamiltonian, envelope,
                    coeff: torch.Tensor, psi0: CP, T0, T, horizon: float,
                    n_steps: int, dt_bound=None,
@@ -309,13 +458,25 @@ def evolve_product(ham: ControlledHamiltonian, envelope,
     """Strang-split evolution for diag + 1q (+ hop) structured H, eager
     PyTorch, in ``ham.dtype`` on psi0's device. Autograd keeps every
     step's intermediates (no rematerialization); the fused engine is the
-    O(1)-memory path."""
+    O(1)-memory path. Per-member coefficients and times: see the module
+    note."""
     _, _, _, _, oneq_qubits, oneq_locals, _, hop_pairs = \
         split_structure_ext(ham)
     n, rdt, dev = ham.n_qubits, ham.dtype, psi0.device
     dt, u = _amplitudes(envelope, coeff, T0, T, horizon, n_steps, t_sample)
     diag_table, h0_vec = _tables(ham, rdt, dev)
     u_diag, u_oneq, u_hop = _control_rows(ham, u, rdt)
+    if u.ndim == 3:  # per-member pulses: one row per state
+        if psi0.ndim != 2:
+            raise ValueError("per-member coefficients or times need a "
+                             "batch of states [B, d]")
+        b = psi0.shape[0]
+        u_diag, u_oneq, u_hop = (_to_members(x, b) for x in
+                                 (u_diag, u_oneq, u_hop))
+        if isinstance(dt, torch.Tensor):
+            dt = _to_members(dt.to(rdt), b)
+    # dt: a number, a 0-dim tensor or one per member [B]
+    dt_col = dt[:, None] if isinstance(dt, torch.Tensor) and dt.ndim else dt
     rot_ops = [("1q", i) for i in range(len(oneq_qubits))] \
         + [("hop", j) for j in range(len(hop_pairs))]
     used = list(oneq_qubits) + [q for pr in hop_pairs for q in pr]
@@ -325,16 +486,16 @@ def evolve_product(ham: ControlledHamiltonian, envelope,
 
     psi = psi0.astype(rdt)
     for t in range(n_steps):
-        theta_half = (0.5 * dt) * (h0_vec + torch.matmul(u_diag[:, t],
-                                                         diag_table))
+        theta_half = (0.5 * dt_col) * (h0_vec + torch.matmul(
+            u_diag[..., t], diag_table))
         ph = CP(torch.cos(theta_half), -torch.sin(theta_half))
         psi = cpx.mul(ph, psi)
         for kind, i in order:
             if kind == "1q":
-                psi = apply_1q_pauli_rot(psi, frac * u_oneq[i, t],
+                psi = apply_1q_pauli_rot(psi, frac * u_oneq[..., i, t],
                                          oneq_qubits[i], n, oneq_locals[i])
             else:
                 qi, qj = hop_pairs[i]
-                psi = apply_hop_rot(psi, frac * u_hop[i, t], qi, qj, n)
+                psi = apply_hop_rot(psi, frac * u_hop[..., i, t], qi, qj, n)
         psi = cpx.mul(ph, psi)
     return psi

@@ -39,13 +39,19 @@ def time_grid(T0, dt, n_steps: int, t_sample: str = "left",
               device=None) -> torch.Tensor:
     """Envelope sample times (float64): 'left' = segment starts (the
     reference semantics, O(dt) vs the true dynamics), 'mid' = segment
-    midpoints (O(dt^2) at the same cost)."""
+    midpoints (O(dt^2) at the same cost). ``T0``/``dt`` may be tensors,
+    0-dim (the MC split time, drawn on the device) or one per member
+    [G], giving grids [G, n_steps]."""
+    if t_sample not in ("left", "mid"):
+        raise ValueError(f"t_sample must be 'left' or 'mid', "
+                         f"got {t_sample!r}")
+    if isinstance(T0, torch.Tensor):
+        T0 = T0.to(torch.float64)[..., None]
+    if isinstance(dt, torch.Tensor):
+        dt = dt.to(torch.float64)[..., None]
     ts = T0 + dt * torch.arange(n_steps, dtype=torch.float64, device=device)
     if t_sample == "mid":
         return ts + 0.5 * dt
-    if t_sample != "left":
-        raise ValueError(f"t_sample must be 'left' or 'mid', "
-                         f"got {t_sample!r}")
     return ts
 
 
@@ -67,10 +73,14 @@ def evolve(
     """Evolve ``psi0`` from ``T0`` to ``T`` under H(t) = H0 + sum u_k(t) H_k.
 
     backend: 'auto' | 'product' | 'product_fused'. 'auto' takes the fused
-    K1 engine for a float32 CUDA state that :func:`..product.
-    fused_eligible` accepts, else the eager 'product' engine (always, on
-    the CPU). Unported engines raise NotImplementedError; none falls back.
-    ``tol`` and ``dt_bound`` belong to the dense backends and are unused.
+    engine (K1 for a state [d], K2 for a batch [B, d]) for a float32 CUDA
+    state that :func:`..product.fused_eligible` accepts, else the eager
+    'product' engine (always, on the CPU). Unported engines raise
+    NotImplementedError; none falls back. ``T0``/``T`` may be tensors on
+    the state's device, 0-dim or one per member (see
+    :mod:`..product`), so a split time drawn on the card is never copied
+    to the host. ``tol`` and ``dt_bound`` belong to the dense backends and
+    are unused.
     """
     from .product import evolve_product, evolve_product_fused, fused_eligible
     if backend in _UNPORTED:

@@ -115,3 +115,9 @@ def build_maxcut(n_qubits: int, graph: Sequence[Sequence[int]],
     return MaxCutProblem(n_qubits=n_qubits, graph=list(graph), ham=ham,
                          envelope=env, measurement=meas, psi0=psi0, T=T,
                          cost_diag=cost_diag)
+
+
+def demo_problem(**kw) -> MaxCutProblem:
+    """The reference demo instance: 4-qubit ring (`demo_maxcut.py:10-11`)."""
+    kw.setdefault("n_basis", 6)
+    return build_maxcut(4, [(0, 1), (0, 3), (1, 2), (2, 3)], **kw)

@@ -1,10 +1,13 @@
-"""K1: the whole streamed Strang chain for one state, and its exact adjoint.
+"""K1 and K2: the whole streamed Strang chain for one state (K1) or a
+batch of states with per-member angles (K2), and their exact adjoints.
 
-Port of :mod:`diffquantum_tpu.ops.fused_product` (``fused_product_evolve``
-and its custom VJP, whose Pallas kernels are ``_make_forward_kernel`` and
-``_make_backward_kernel``). The CUDA kernels live in
-``csrc/fused_product.cu``; this module holds their wrapper, the op plan,
-the table helpers, and the plain PyTorch version of both kernels.
+Port of :mod:`diffquantum_tpu.ops.fused_product`: ``fused_product_evolve``
+and ``fused_product_evolve_batched`` with their custom VJPs, whose Pallas
+kernels are ``_make_forward_kernel``/``_make_backward_kernel`` (K1) and
+``_make_forward_kernel_b``/``_make_backward_kernel_b`` (K2). The CUDA
+kernels live in ``csrc/fused_product.cu``, where K1 is K2's block code at
+one member; this module holds their wrappers, the op plan, the table
+helpers, and the plain PyTorch versions of all four kernels.
 
 Math (real-pair convention, L real):
   phase    y = e^{-i th} x:  dL/dth = lam_re*y_im - lam_im*y_re (elementwise)
@@ -27,8 +30,9 @@ TPU's row/lane split and XOR-permutation matmuls have no counterpart, so
 computes exactly what 'full' computes here.
 
 Dispatch: CPU tensors take the plain version, CUDA tensors launch the
-kernel (``FWD_LAUNCHES`` / ``BWD_LAUNCHES`` count the launches); there is
-no fallback from one to the other.
+kernel (``FWD_LAUNCHES`` / ``BWD_LAUNCHES`` count K1's launches,
+``K2_FWD_LAUNCHES`` / ``K2_BWD_LAUNCHES`` K2's); there is no fallback
+from one to the other.
 """
 from __future__ import annotations
 
@@ -48,8 +52,10 @@ MAX_OPS = 128          # op-table rows the kernel holds in shared memory
 MIN_QUBITS, MAX_QUBITS = 10, 17   # the router's 'streamed' band
 _BWD_SMEM_MAX_QUBITS = 13  # above this the backward keeps y in scratch
 
-FWD_LAUNCHES = 0
+FWD_LAUNCHES = 0       # K1 launches
 BWD_LAUNCHES = 0
+K2_FWD_LAUNCHES = 0
+K2_BWD_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -246,6 +252,21 @@ def _rot_plain(re, im, op, c, s, d):
     return ct * re + s * (m * g_im), ct * im - s * (m * g_re)
 
 
+def _evolve_core(re, im, a, tx, plan, d):
+    """The forward stage loop on states [..., d]: merged phase rows
+    a [T+1, ..., d], angles tx [T, ..., n_x] (leading dims per member)."""
+    n_steps = tx.shape[0]
+    for k in range(n_steps + 1):
+        c, s = torch.cos(a[k]), torch.sin(a[k])
+        re, im = c * re + s * im, c * im - s * re
+        if k == n_steps:
+            break
+        for op in plan:
+            th = tx[k, ..., int(op[0])][..., None]
+            re, im = _rot_plain(re, im, op, torch.cos(th), torch.sin(th), d)
+    return re, im
+
+
 def fused_product_evolve_plain(psi0: CP, theta_half: torch.Tensor,
                                theta_x: torch.Tensor, x_qubits: tuple,
                                n_qubits: int, kinds: tuple = None) -> CP:
@@ -255,24 +276,15 @@ def fused_product_evolve_plain(psi0: CP, theta_half: torch.Tensor,
     plan = _plan_ops(x_qubits, kinds, n_qubits)
     _check_inputs(psi0.re, psi0.im, theta_half, theta_x, n_qubits,
                   len(plan))
-    d = 1 << n_qubits
-    a = merge_phase_rows(theta_half)
-    n_steps = theta_half.shape[0]
-    re, im = psi0.re, psi0.im
-    for k in range(n_steps + 1):
-        c, s = torch.cos(a[k]), torch.sin(a[k])
-        re, im = c * re + s * im, c * im - s * re
-        if k == n_steps:
-            break
-        for op in plan:
-            th = theta_x[k, int(op[0])]
-            re, im = _rot_plain(re, im, op, torch.cos(th), torch.sin(th), d)
+    re, im = _evolve_core(psi0.re, psi0.im, merge_phase_rows(theta_half),
+                          theta_x, plan, 1 << n_qubits)
     return CP(re, im)
 
 
 def _undo_rot_plain(y_re, y_im, l_re, l_im, op, c, s, d):
-    """Invert one rotation: returns (x_re, x_im, lam_x_re, lam_x_im,
-    dL/dtheta), deriving G(x) from G(y) (G^2 = I, K^2 = -I)."""
+    """Invert one rotation on states [..., d]: returns (x_re, x_im,
+    lam_x_re, lam_x_im, dL/dtheta [...]), deriving G(x) from G(y)
+    (G^2 = I, K^2 = -I)."""
     _, kind, ma, mb = (int(v) for v in op)
     if kind == KIND_X:
         gy_re, gy_im = _flip(y_re, ma), _flip(y_im, ma)
@@ -282,7 +294,7 @@ def _undo_rot_plain(y_re, y_im, l_re, l_im, op, c, s, d):
         gx_re = c * gy_re - s * y_im
         gx_im = c * gy_im + s * y_re
         g = torch.sum(l_re * (-s * x_re + c * gx_im)
-                      + l_im * (-s * x_im - c * gx_re))
+                      + l_im * (-s * x_im - c * gx_re), dim=-1)
         return x_re, x_im, c * l_re - s * gl_im, c * l_im + s * gl_re, g
     if kind == KIND_Y:
         ky_re, ky_im = _kflip(y_re, ma), _kflip(y_im, ma)
@@ -292,7 +304,7 @@ def _undo_rot_plain(y_re, y_im, l_re, l_im, op, c, s, d):
         gx_re = c * ky_re + s * y_re
         gx_im = c * ky_im + s * y_im
         g = torch.sum(l_re * (-s * x_re + c * gx_re)
-                      + l_im * (-s * x_im + c * gx_im))
+                      + l_im * (-s * x_im + c * gx_im), dim=-1)
         return x_re, x_im, c * l_re - s * kl_re, c * l_im - s * kl_im, g
     m = _hop_mask(d, ma, mb, y_re)
     ct = 1.0 + m * (c - 1.0)
@@ -304,9 +316,33 @@ def _undo_rot_plain(y_re, y_im, l_re, l_im, op, c, s, d):
     gx_re = c * gy_re - s * (m * y_im)
     gx_im = c * gy_im + s * (m * y_re)
     g = torch.sum(l_re * (-s * (m * x_re) + c * gx_im)
-                  + l_im * (-s * (m * x_im) - c * gx_re))
+                  + l_im * (-s * (m * x_im) - c * gx_re), dim=-1)
     return (x_re, x_im, ct * l_re - s * (m * tl_im),
             ct * l_im + s * (m * tl_re), g)
+
+
+def _adjoint_core(y_re, y_im, l_re, l_im, a, tx, plan, d):
+    """The backward stage loop on states [..., d] (see
+    :func:`_evolve_core`): returns (dpsi0 re, im, d theta_half [T, ..., d],
+    d theta_x shaped like tx)."""
+    n_steps = tx.shape[0]
+    ga = torch.empty((n_steps + 1,) + tuple(y_re.shape), dtype=a.dtype,
+                     device=a.device)
+    gtx = torch.zeros(tx.shape, dtype=tx.dtype, device=tx.device)
+    for k in range(n_steps, -1, -1):
+        if k < n_steps:
+            for op in plan[::-1]:
+                j = int(op[0])
+                th = tx[k, ..., j][..., None]
+                y_re, y_im, l_re, l_im, g = _undo_rot_plain(
+                    y_re, y_im, l_re, l_im, op, torch.cos(th),
+                    torch.sin(th), d)
+                gtx[k, ..., j] = g
+        c, s = torch.cos(a[k]), torch.sin(a[k])
+        ga[k] = l_re * y_im - l_im * y_re
+        y_re, y_im = c * y_re - s * y_im, s * y_re + c * y_im
+        l_re, l_im = c * l_re - s * l_im, s * l_re + c * l_im
+    return l_re, l_im, unmerge_phase_grads(ga), gtx
 
 
 def _adjoint_plain(psi_T: CP, lam: CP, theta_half: torch.Tensor,
@@ -319,26 +355,102 @@ def _adjoint_plain(psi_T: CP, lam: CP, theta_half: torch.Tensor,
     plan = _plan_ops(x_qubits, kinds, n_qubits)
     _check_inputs(psi_T.re, psi_T.im, theta_half, theta_x, n_qubits,
                   len(plan))
+    g_re, g_im, gth, gtx = _adjoint_core(
+        psi_T.re, psi_T.im, lam.re, lam.im, merge_phase_rows(theta_half),
+        theta_x, plan, 1 << n_qubits)
+    return CP(g_re, g_im), gth, gtx
+
+
+# ---------------------------------------------------------------------------
+# K2: the batched chain, plain version
+# ---------------------------------------------------------------------------
+
+def _check_inputs_b(psi_re, psi_im, theta_half, theta_x, n_qubits, n_ops):
+    """K2's contract: psi [B, d], theta_half [T, G, d], theta_x
+    [T, Gx, n_ops], with G and Gx dividing B (G = B: a row per member)."""
+    ts = (psi_re, psi_im, theta_half, theta_x)
+    if len({t.device for t in ts}) != 1:
+        raise ValueError("fused_product_evolve_batched: inputs on different "
+                         "devices")
+    for t in ts:
+        if t.dtype != torch.float32:
+            raise TypeError(f"fused_product_evolve_batched takes float32, "
+                            f"got {t.dtype}")
+    if not (theta_half.is_contiguous() and theta_x.is_contiguous()):
+        raise ValueError("fused_product_evolve_batched takes contiguous "
+                         "tables (shared rows as [T, G, ...] group rows)")
+    if not MIN_QUBITS <= n_qubits <= MAX_QUBITS:
+        raise ValueError(f"fused_product_evolve_batched runs {MIN_QUBITS}.."
+                         f"{MAX_QUBITS} qubits, got {n_qubits}")
     d = 1 << n_qubits
-    n_steps = theta_half.shape[0]
-    a = merge_phase_rows(theta_half)
-    y_re, y_im, l_re, l_im = psi_T.re, psi_T.im, lam.re, lam.im
-    ga = torch.empty((n_steps + 1, d), dtype=theta_half.dtype,
-                     device=theta_half.device)
-    gtx = torch.zeros_like(theta_x)
-    for k in range(n_steps, -1, -1):
-        if k < n_steps:
-            for op in plan[::-1]:
-                th = theta_x[k, int(op[0])]
-                y_re, y_im, l_re, l_im, g = _undo_rot_plain(
-                    y_re, y_im, l_re, l_im, op, torch.cos(th),
-                    torch.sin(th), d)
-                gtx[k, int(op[0])] = g
-        c, s = torch.cos(a[k]), torch.sin(a[k])
-        ga[k] = l_re * y_im - l_im * y_re
-        y_re, y_im = c * y_re - s * y_im, s * y_re + c * y_im
-        l_re, l_im = c * l_re - s * l_im, s * l_re + c * l_im
-    return CP(l_re, l_im), unmerge_phase_grads(ga), gtx
+    if psi_re.ndim != 2 or psi_re.shape[1] != d \
+            or psi_im.shape != psi_re.shape or psi_re.shape[0] < 1:
+        raise ValueError(f"psi0 must be [B, {d}], got "
+                         f"{tuple(psi_re.shape)}")
+    b = psi_re.shape[0]
+    if theta_half.ndim != 3 or theta_half.shape[2] != d \
+            or theta_half.shape[0] < 1 or b % theta_half.shape[1]:
+        raise ValueError(f"theta_half must be [T>=1, G, {d}] with G "
+                         f"dividing B={b}, got {tuple(theta_half.shape)}")
+    if theta_x.ndim != 3 or theta_x.shape[0] != theta_half.shape[0] \
+            or theta_x.shape[2] != n_ops or b % theta_x.shape[1]:
+        raise ValueError(f"theta_x must be [{theta_half.shape[0]}, Gx, "
+                         f"{n_ops}] with Gx dividing B={b}, got "
+                         f"{tuple(theta_x.shape)}")
+    if n_ops > MAX_OPS:
+        raise ValueError(f"op plan has {n_ops} ops; the kernel holds "
+                         f"{MAX_OPS}")
+
+
+def _per_member(t: torch.Tensor, b: int) -> torch.Tensor:
+    """[T, G, ...] group rows -> [T, B, ...] member rows."""
+    g = t.shape[1]
+    return t if g == b else t.repeat_interleave(b // g, dim=1)
+
+
+def _to_groups(g: torch.Tensor, groups: int) -> torch.Tensor:
+    """[T, B, ...] member cotangents -> [T, G, ...]: the transpose of
+    :func:`_per_member` (the sum over each group's members)."""
+    n_steps, b = g.shape[:2]
+    if groups == b:
+        return g
+    return g.reshape((n_steps, groups, b // groups) + tuple(g.shape[2:])
+                     ).sum(dim=2)
+
+
+def fused_product_evolve_batched_plain(psi0: CP, theta_half: torch.Tensor,
+                                       theta_x: torch.Tensor,
+                                       x_qubits: tuple, n_qubits: int,
+                                       kinds: tuple = None) -> CP:
+    """K2's forward in plain PyTorch: K1's stage loop over B members,
+    each reading its group's rows."""
+    kinds = tuple(kinds) if kinds else ("x",) * len(x_qubits)
+    plan = _plan_ops(x_qubits, kinds, n_qubits)
+    _check_inputs_b(psi0.re, psi0.im, theta_half, theta_x, n_qubits,
+                    len(plan))
+    b = psi0.re.shape[0]
+    re, im = _evolve_core(psi0.re, psi0.im,
+                          merge_phase_rows(_per_member(theta_half, b)),
+                          _per_member(theta_x, b), plan, 1 << n_qubits)
+    return CP(re, im)
+
+
+def _adjoint_batched_plain(psi_T: CP, lam: CP, theta_half: torch.Tensor,
+                           theta_x: torch.Tensor, x_qubits: tuple,
+                           n_qubits: int, kinds: tuple = None):
+    """K2's backward in plain PyTorch: (dpsi0 CP [B, d], d theta_half and
+    d theta_x in the shapes of theta_half and theta_x)."""
+    kinds = tuple(kinds) if kinds else ("x",) * len(x_qubits)
+    plan = _plan_ops(x_qubits, kinds, n_qubits)
+    _check_inputs_b(psi_T.re, psi_T.im, theta_half, theta_x, n_qubits,
+                    len(plan))
+    b = psi_T.re.shape[0]
+    g_re, g_im, gth, gtx = _adjoint_core(
+        psi_T.re, psi_T.im, lam.re, lam.im,
+        merge_phase_rows(_per_member(theta_half, b)),
+        _per_member(theta_x, b), plan, 1 << n_qubits)
+    return (CP(g_re, g_im), _to_groups(gth, theta_half.shape[1]),
+            _to_groups(gtx, theta_x.shape[1]))
 
 
 # ---------------------------------------------------------------------------
@@ -349,10 +461,10 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_product")
     if not getattr(lib, "_dq_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dq_k1_forward.argtypes = [p] * 7 + [i] * 3 + [p]
-        lib.dq_k1_forward.restype = i
-        lib.dq_k1_backward.argtypes = [p] * 13 + [i] * 3 + [p]
-        lib.dq_k1_backward.restype = i
+        lib.dq_forward.argtypes = [p] * 7 + [i] * 6 + [p]
+        lib.dq_forward.restype = i
+        lib.dq_backward.argtypes = [p] * 13 + [i] * 6 + [p]
+        lib.dq_backward.restype = i
         lib.dq_error_string.argtypes = [i]
         lib.dq_error_string.restype = ctypes.c_char_p
         lib._dq_typed = True
@@ -361,7 +473,7 @@ def _lib() -> ctypes.CDLL:
 
 def _raise_on(lib, code: int, what: str):
     if code != 0:
-        raise RuntimeError(f"K1 {what} launch failed: "
+        raise RuntimeError(f"{what} launch failed: "
                            f"{lib.dq_error_string(code).decode()} ({code})")
 
 
@@ -369,95 +481,132 @@ def _ptr(t):
     return t.data_ptr() if t is not None and t.numel() else None
 
 
+def _kernel_rows(t: torch.Tensor) -> torch.Tensor:
+    """The [T, G, ...] rows the kernels read: a single chain's [T, ...]
+    table is its one row (G = 1)."""
+    return t[:, None] if t.ndim == 2 else t
+
+
+def _members(psi_re: torch.Tensor) -> int:
+    return psi_re.shape[0] if psi_re.ndim == 2 else 1
+
+
+def _count(batched: bool, backward: bool):
+    global FWD_LAUNCHES, BWD_LAUNCHES, K2_FWD_LAUNCHES, K2_BWD_LAUNCHES
+    if batched and backward:
+        K2_BWD_LAUNCHES += 1
+    elif batched:
+        K2_FWD_LAUNCHES += 1
+    elif backward:
+        BWD_LAUNCHES += 1
+    else:
+        FWD_LAUNCHES += 1
+
+
 def _forward_cuda(psi_re, psi_im, theta_half, theta_x, plan, n_qubits):
-    global FWD_LAUNCHES
-    dev = psi_re.device
-    ops = _plan_tensor(tuple(map(tuple, plan.tolist())), dev)
+    """The forward launch: K1 for a state [d], K2 for a batch [B, d]."""
+    batched = psi_re.ndim == 2
+    b = _members(psi_re)
+    th, tx = _kernel_rows(theta_half), _kernel_rows(theta_x)
+    ops = _plan_tensor(tuple(map(tuple, plan.tolist())), psi_re.device)
+    psi_re, psi_im = psi_re.contiguous(), psi_im.contiguous()
     out_re, out_im = torch.empty_like(psi_re), torch.empty_like(psi_im)
     lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.dq_k1_forward(
-            _ptr(theta_half), _ptr(theta_x), _ptr(psi_re), _ptr(psi_im),
-            _ptr(ops), _ptr(out_re), _ptr(out_im), n_qubits,
-            theta_half.shape[0], len(plan), stream)
-    _raise_on(lib, code, "forward")
-    FWD_LAUNCHES += 1
+    with torch.cuda.device(psi_re.device):
+        stream = torch.cuda.current_stream(psi_re.device).cuda_stream
+        code = lib.dq_forward(
+            _ptr(th), _ptr(tx), _ptr(psi_re), _ptr(psi_im), _ptr(ops),
+            _ptr(out_re), _ptr(out_im), n_qubits, th.shape[0], len(plan), b,
+            th.shape[1], tx.shape[1], stream)
+    _raise_on(lib, code, "K2 forward" if batched else "K1 forward")
+    _count(batched, backward=False)
     return out_re, out_im
 
 
 def _backward_cuda(out_re, out_im, lam_re, lam_im, theta_half, theta_x,
                    plan, n_qubits):
-    global BWD_LAUNCHES
-    dev = out_re.device
-    ops = _plan_tensor(tuple(map(tuple, plan.tolist())), dev)
-    gth = torch.empty_like(theta_half)
-    gtx = torch.empty_like(theta_x)
+    """The adjoint launch (K1 or K2, as :func:`_forward_cuda`); returns
+    (dpsi0 re, im, d theta_half, d theta_x) in the shapes of the inputs
+    (group rows summed over their members)."""
+    batched = out_re.ndim == 2
+    b = _members(out_re)
+    th, tx = _kernel_rows(theta_half), _kernel_rows(theta_x)
+    n_steps, d = th.shape[0], out_re.shape[-1]
+    ops = _plan_tensor(tuple(map(tuple, plan.tolist())), out_re.device)
+    f32 = dict(dtype=torch.float32, device=out_re.device)
+    gth = torch.empty((n_steps, b, d), **f32)
+    gtx = torch.empty((n_steps, b, tx.shape[2]), **f32)
     gp_re, gp_im = torch.empty_like(out_re), torch.empty_like(out_im)
     scratch = (torch.empty_like(out_re), torch.empty_like(out_im)) \
         if n_qubits > _BWD_SMEM_MAX_QUBITS else (None, None)
     lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.dq_k1_backward(
-            _ptr(theta_half), _ptr(theta_x), _ptr(out_re), _ptr(out_im),
-            _ptr(lam_re), _ptr(lam_im), _ptr(ops), _ptr(gth), _ptr(gtx),
-            _ptr(gp_re), _ptr(gp_im), _ptr(scratch[0]), _ptr(scratch[1]),
-            n_qubits, theta_half.shape[0], len(plan), stream)
-    _raise_on(lib, code, "backward")
-    BWD_LAUNCHES += 1
-    return gp_re, gp_im, gth, gtx
+    with torch.cuda.device(out_re.device):
+        stream = torch.cuda.current_stream(out_re.device).cuda_stream
+        code = lib.dq_backward(
+            _ptr(th), _ptr(tx), _ptr(out_re), _ptr(out_im), _ptr(lam_re),
+            _ptr(lam_im), _ptr(ops), _ptr(gth), _ptr(gtx), _ptr(gp_re),
+            _ptr(gp_im), _ptr(scratch[0]), _ptr(scratch[1]), n_qubits,
+            n_steps, len(plan), b, th.shape[1], tx.shape[1], stream)
+    _raise_on(lib, code, "K2 backward" if batched else "K1 backward")
+    _count(batched, backward=True)
+    if not batched:
+        return gp_re, gp_im, gth[:, 0], gtx[:, 0]
+    return (gp_re, gp_im, _to_groups(gth, theta_half.shape[1]),
+            _to_groups(gtx, theta_x.shape[1]))
 
 
 class _FusedProductEvolve(torch.autograd.Function):
-    """psi(T) and its exact adjoint: the kernel pair on the card, the
-    plain pair (:func:`fused_product_evolve_plain`, :func:`_adjoint_plain`)
-    on the CPU."""
+    """psi(T) and its exact adjoint, for one state (K1) or a batch (K2):
+    the kernel pair on the card, the plain pair
+    (:func:`fused_product_evolve_plain` / :func:`_adjoint_plain`, or
+    their batched forms) on the CPU."""
 
     @staticmethod
     def forward(ctx, psi_re, psi_im, theta_half, theta_x, x_qubits,
-                n_qubits, kinds):
+                n_qubits, kinds, batched):
         plan = _plan_ops(x_qubits, kinds, n_qubits)
-        _check_inputs(psi_re, psi_im, theta_half, theta_x, n_qubits,
-                      len(plan))
+        check = _check_inputs_b if batched else _check_inputs
+        check(psi_re, psi_im, theta_half, theta_x, n_qubits, len(plan))
         if psi_re.is_cuda:
             out_re, out_im = _forward_cuda(psi_re, psi_im, theta_half,
                                            theta_x, plan, n_qubits)
         elif psi_re.device.type == "cpu":
-            out = fused_product_evolve_plain(CP(psi_re, psi_im), theta_half,
-                                             theta_x, x_qubits, n_qubits,
-                                             kinds)
+            plain = fused_product_evolve_batched_plain if batched \
+                else fused_product_evolve_plain
+            out = plain(CP(psi_re, psi_im), theta_half, theta_x, x_qubits,
+                        n_qubits, kinds)
             out_re, out_im = out.re, out.im
         else:
             raise ValueError(f"fused_product_evolve: no path for device "
                              f"{psi_re.device}")
         ctx.save_for_backward(out_re, out_im, theta_half, theta_x)
-        ctx.static = (x_qubits, n_qubits, kinds, plan)
+        ctx.static = (x_qubits, n_qubits, kinds, plan, batched)
         return out_re, out_im
 
     @staticmethod
     def backward(ctx, lam_re, lam_im):
         out_re, out_im, theta_half, theta_x = ctx.saved_tensors
-        x_qubits, n_qubits, kinds, plan = ctx.static
+        x_qubits, n_qubits, kinds, plan, batched = ctx.static
         lam_re, lam_im = lam_re.contiguous(), lam_im.contiguous()
         if out_re.is_cuda:
             gp_re, gp_im, gth, gtx = _backward_cuda(
                 out_re, out_im, lam_re, lam_im, theta_half, theta_x, plan,
                 n_qubits)
         else:
-            gp, gth, gtx = _adjoint_plain(CP(out_re, out_im),
-                                          CP(lam_re, lam_im), theta_half,
-                                          theta_x, x_qubits, n_qubits, kinds)
+            plain = _adjoint_batched_plain if batched else _adjoint_plain
+            gp, gth, gtx = plain(CP(out_re, out_im), CP(lam_re, lam_im),
+                                 theta_half, theta_x, x_qubits, n_qubits,
+                                 kinds)
             gp_re, gp_im = gp.re, gp.im
-        return gp_re, gp_im, gth, gtx, None, None, None
+        return gp_re, gp_im, gth, gtx, None, None, None, None
 
 
 def fused_product_evolve(psi0: CP, theta_half: torch.Tensor,
                          theta_x: torch.Tensor, x_qubits: tuple,
                          n_qubits: int, kinds: tuple = None,
                          fast_math: bool = False) -> CP:
-    """psi(T) = P(a_T) prod_t [R_t P(a_t)] psi0, differentiable in psi0,
-    theta_half and theta_x.
+    """psi(T) = P(a_T) prod_t [R_t P(a_t)] psi0 (K1), differentiable in
+    psi0, theta_half and theta_x.
 
     psi0: CP [2^n] f32; theta_half: [T, 2^n] half-step phase angles;
     theta_x: [T, n_x] rotation angles, column j for ``x_qubits[j]``;
@@ -468,6 +617,31 @@ def fused_product_evolve(psi0: CP, theta_half: torch.Tensor,
     kinds = tuple(kinds) if kinds else ("x",) * len(x_qubits)
     re, im = _FusedProductEvolve.apply(psi0.re, psi0.im, theta_half,
                                        theta_x, tuple(x_qubits), n_qubits,
-                                       kinds)
+                                       kinds, False)
     return CP(re, im)
 
+
+def fused_product_evolve_batched(psi0: CP, theta_half: torch.Tensor,
+                                 theta_x: torch.Tensor, x_qubits: tuple,
+                                 n_qubits: int, kinds: tuple = None,
+                                 fast_math: bool = False) -> CP:
+    """Batched fused evolution (K2), differentiable in all three inputs:
+    psi0 CP [B, 2^n] f32, theta_half [T, B, 2^n], theta_x [T, B, n_x]:
+    per-member pulses, as in the JAX package.
+
+    A table may also carry G rows for B members, G dividing B
+    (theta_half [T, G, 2^n], theta_x [T, G, n_x]): row g then serves
+    members g*B/G .. (g+1)*B/G - 1, and its gradient is the sum over
+    them: no [T, B, 2^n] table is built for members that share their
+    pulses (the MC estimator's branches). Tables are contiguous; an
+    ``expand``ed [T, B, ...] table is refused on every device, since
+    [T, 1, ...] group rows say the same without strides. ``fast_math``
+    changes nothing, as for :func:`fused_product_evolve`. T = 1 runs the
+    merged stage loop, which equals the JAX package's unmerged T = 1
+    stage."""
+    del fast_math
+    kinds = tuple(kinds) if kinds else ("x",) * len(x_qubits)
+    re, im = _FusedProductEvolve.apply(psi0.re, psi0.im, theta_half,
+                                       theta_x, tuple(x_qubits), n_qubits,
+                                       kinds, True)
+    return CP(re, im)

@@ -64,18 +64,26 @@ class SimpleEnvelope:
     def raw(self, coeff: torch.Tensor, ts: torch.Tensor, T) -> torch.Tensor:
         """Pre-squash expansion A_k(t) = sum_j c_kj phi_j(t):
         coeff [n_controls, n_basis], ts [n_t] → [n_controls, n_t]. The
-        basis is evaluated in the grid's dtype and cast to coeff's."""
+        basis is evaluated in the grid's dtype and cast to coeff's.
+        Per-member coefficients [G, n_controls, n_basis] and/or grids
+        [G, n_t] give [G, n_controls, n_t]."""
         phi = basis_matrix(self.basis, self.n_basis, ts, T)
         return torch.matmul(coeff, phi.to(dtype=coeff.dtype,
-                                          device=coeff.device).T)
+                                          device=coeff.device
+                                          ).transpose(-1, -2))
+
+    def omega_vector(self, dtype, device) -> torch.Tensor:
+        """omegas as a [n_controls] tensor on ``device``, memoized: one
+        host-to-card copy, not one (and a stream sync) per call."""
+        key = ("omegas", dtype, str(device))
+        if key not in self._memo:
+            self._memo[key] = torch.tensor(self.omegas, dtype=dtype,
+                                           device=device)
+        return self._memo[key]
 
     def amplitudes(self, coeff: torch.Tensor, ts: torch.Tensor,
                    T) -> torch.Tensor:
-        """u[n_controls, n_t] drive amplitude table."""
+        """u[..., n_controls, n_t] drive amplitude table."""
         a = self.raw(coeff, ts, T)
-        key = ("omegas", a.dtype, str(a.device))
-        if key not in self._memo:  # one host-to-card copy, not one per call
-            self._memo[key] = torch.tensor(self.omegas, dtype=a.dtype,
-                                           device=a.device)
-        omg = self._memo[key]
+        omg = self.omega_vector(a.dtype, a.device)
         return (2.0 * clamped_sigmoid(a) - 1.0) * omg[:, None]

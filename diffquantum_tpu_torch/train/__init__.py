@@ -1,2 +1,3 @@
 from .config import TrainConfig
-from .energy import TrainResult, make_optimizer, train_energy
+from .energy import (TrainResult, make_optimizer, train_energy,
+                     train_energy_fd)

@@ -1,10 +1,11 @@
 """Training configuration — the port of
 :class:`diffquantum_tpu.train.config.TrainConfig`, same fields and
 defaults. What the port does not run yet raises in the trainer, not here:
-``grad_mode`` 'mc'/'fd', ``lr_schedule`` other than 'constant',
-``checkpoint_dir``, ``sampling_measure``/``is_noisy``. ``epoch_block`` and
-``precision='fast'`` are accepted and change nothing (PyTorch runs
-eagerly; K1 has no matmul precision to pick)."""
+``lr_schedule`` other than 'constant' and ``checkpoint_dir`` (ROADMAP.md,
+Queue 1 item 20). ``epoch_block`` and ``precision='fast'`` are accepted
+and change nothing (PyTorch runs eagerly; the fused kernels have no
+matmul precision to pick). ``mc_t_jacobian`` is read by no trainer, as in
+the JAX package."""
 from __future__ import annotations
 
 import dataclasses

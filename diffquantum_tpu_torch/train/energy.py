@@ -1,5 +1,14 @@
 """Energy-minimization training — the port of
-:func:`diffquantum_tpu.train.energy.train_energy` in its adjoint mode.
+:func:`diffquantum_tpu.train.energy.train_energy` and ``train_energy_fd``,
+with the three gradient modes:
+
+- ``adjoint``: the exact reverse-mode gradient (K1 forward and adjoint on
+  the card);
+- ``mc``: the paper's Monte-Carlo estimator, one sample per epoch, or the
+  mean of ``config.mc_samples`` iid samples run as one batch
+  (:mod:`..gradients.mc`);
+- ``fd``: central finite differences, one batched evolution
+  (:mod:`..gradients.fd`).
 
 Semantics kept from the JAX package:
 - coefficient init ``N(0, 1e-3)`` (drawn from a ``torch.Generator``
@@ -7,16 +16,20 @@ Semantics kept from the JAX package:
   ``init_coeff``);
 - Adam (``torch.optim.Adam`` with optax's defaults: betas (0.9, 0.999),
   eps 1e-8) or SGD at a constant learning rate;
-- per epoch: the loss at the current coefficients, then one update; the
-  reported gap is ``loss - lambda_min(M)``;
+- per epoch: the measured loss at the current coefficients, then one
+  update; the reported gap is ``loss - lambda_min(M)``. The measured loss
+  is a separate forward evolution measured with ``sampling_measure`` /
+  ``is_noisy``; in adjoint mode with exact measurement it is the value
+  ``energy_and_grad`` returns, which is the same number;
+- the MC and FD estimators take ``config.n_step`` steps, the loss and the
+  adjoint ``per_step`` rule's;
 - ``w_l2 > 0`` adds the j^2-weighted L2 gradient to the estimator's.
 
 There is no analog of the JAX epoch-block ``lax.scan``: PyTorch runs
-eagerly. The loss of an epoch is the value ``energy_and_grad`` returns,
-which equals the JAX package's separate measured forward when the
-measurement is exact (the only kind ported). Not ported yet, and raising:
-``grad_mode`` 'mc' (ROADMAP.md, Queue 1 item 10) and 'fd' (item 11), LR
-schedules and checkpoint/resume (item 20).
+eagerly. Random draws (split times, shots, noise) come from a
+``torch.Generator`` on the state's device seeded with ``config.seed + 1``,
+not from the JAX key schedule. Not ported yet, and raising: LR schedules
+and checkpoint/resume (ROADMAP.md, Queue 1 item 20).
 """
 from __future__ import annotations
 
@@ -29,14 +42,13 @@ import torch
 
 from ..dynamics.propagator import evolve, reference_n_steps
 from ..gradients.adjoint import energy_and_grad
-from ..measure import Measurement
+from ..gradients.fd import fd_energy_grad
+from ..gradients.mc import mc_energy_grad, mc_energy_grad_batch
+from ..measure import Measurement, measure
 from ..utils.logger import Logger, NullLogger
 from .config import TrainConfig
 
-_UNPORTED_MODES = {
-    "mc": "grad_mode='mc' is not ported yet (ROADMAP.md, Queue 1 item 10)",
-    "fd": "grad_mode='fd' is not ported yet (ROADMAP.md, Queue 1 item 11)",
-}
+GRAD_MODES = ("adjoint", "mc", "fd")
 
 
 @dataclasses.dataclass
@@ -90,18 +102,12 @@ def train_energy(
     """Optimize spectral coefficients to minimize <psi(T)|M|psi(T)>, on
     psi0's device."""
     mode = config.grad_mode
-    if mode in _UNPORTED_MODES:
-        raise NotImplementedError(_UNPORTED_MODES[mode])
-    if mode != "adjoint":
+    if mode not in GRAD_MODES:
         raise ValueError(f"unknown grad_mode {mode!r}")
     if config.checkpoint_dir:
         raise NotImplementedError(
             "checkpoint/resume is not ported yet (ROADMAP.md, Queue 1 "
             "item 20)")
-    if config.sampling_measure or config.is_noisy:
-        raise NotImplementedError(
-            "shot-sampled and noisy measurement are not ported yet "
-            "(ROADMAP.md, Queue 1 item 10)")
     log = logger or NullLogger()
     log.write_text("!!!! train_energy ========")
     log.log_config({f.name: getattr(config, f.name)
@@ -116,6 +122,7 @@ def train_energy(
                                 device=dev).detach().clone()
     coeff.requires_grad_(True)
     opt = make_optimizer(config, [coeff])
+    draws = torch.Generator(device=dev).manual_seed(config.seed + 1)
 
     T = float(T)
     n_steps = reference_n_steps(config.per_step, 0.0, T)
@@ -124,13 +131,48 @@ def train_energy(
     lam_min = float(lam_min)
     evolve_kw = dict(backend=config.backend, precision=config.precision,
                      t_sample=config.t_sample)
+    meas_flags = dict(sampling=config.sampling_measure,
+                      noisy=config.is_noisy, per_pauli=config.per_pauli)
+    exact_loss = mode == "adjoint" and not (config.sampling_measure
+                                            or config.is_noisy)
+
+    def measured_loss(c):
+        with torch.no_grad():
+            psi = evolve(ham, envelope, c, psi0, 0.0, T, horizon=T,
+                         n_steps=n_steps, **evolve_kw)
+            return measure(measurement, psi, draws, **meas_flags)
+
+    def value_and_grad(c):
+        if mode == "adjoint":
+            return energy_and_grad(ham, envelope, measurement, c, psi0, T,
+                                   n_steps, **evolve_kw)
+        if mode == "mc" and config.mc_samples == 1:
+            g = mc_energy_grad(ham, envelope, measurement, c, psi0, T,
+                               draws, config.n_step, chain=config.mc_chain,
+                               **evolve_kw, **meas_flags)
+        elif mode == "mc":
+            # the mean of iid single samples, as the JAX trainer takes it
+            # (config.mc_strategy is the seed trainer's), as one batch
+            g = mc_energy_grad_batch(
+                ham, envelope, measurement, c, psi0, T, draws,
+                config.n_step, config.mc_samples, strategy="iid",
+                chain=config.mc_chain, **evolve_kw, **meas_flags)
+        else:
+            g = fd_energy_grad(ham, envelope, measurement, c, psi0, T,
+                               draws, config.n_step, delta=config.fd_delta,
+                               **evolve_kw, **meas_flags)
+        return None, g
 
     losses_gap, losses_raw = [], []
     t0 = time.time()
     for epoch in range(1, config.n_epoch + 1):
-        loss, grad = energy_and_grad(ham, envelope, measurement,
-                                     coeff.detach(), psi0, T, n_steps,
-                                     **evolve_kw)
+        c = coeff.detach()
+        # the measured loss first, as the JAX trainer draws it; with exact
+        # measurement the adjoint's own value is that number
+        loss = None if exact_loss else measured_loss(c)
+        value, grad = value_and_grad(c)
+        if loss is None:
+            loss = value
         with torch.no_grad():
             coeff.grad = grad.to(rdt) + l2_grad(coeff, config.w_l2)
         opt.step()
@@ -153,3 +195,10 @@ def train_energy(
     return TrainResult(coeff=coeff, losses_energy=losses_gap,
                        losses_raw=losses_raw, final_state=final_state,
                        wall_s=time.time() - t0, grad_mode=mode)
+
+
+def train_energy_fd(ham, envelope, measurement, psi0, T,
+                    config: TrainConfig, **kw) -> TrainResult:
+    """The reference's FD baseline trainer (`sim_plain.py:355-412`)."""
+    return train_energy(ham, envelope, measurement, psi0, T,
+                        config.replace(grad_mode="fd"), **kw)

@@ -1,16 +1,22 @@
-"""Where the time of the port's 12-qubit MaxCut grad step goes, on a card.
+"""Where the time of the port's 12-qubit MaxCut paths goes, on a card.
 
-    python3 scripts/profile_torch_step.py [--steps 50]
+    python3 scripts/profile_torch_step.py [--steps 50] [--path grad|seeds|mc|mc_seeds|fd|all]
 
-Runs ``diffquantum_tpu_torch.gradients.adjoint.energy_and_grad`` on the
-12-qubit ring MaxCut (30 Strang steps, the fused K1 engine) under
-``torch.profiler`` and prints: the card's name and power limit, the wall
+Paths (all on the 12-qubit ring MaxCut, 30 Strang steps):
+  grad      one ``energy_and_grad`` call (K1 forward and adjoint);
+  seeds     one adjoint epoch of ``train_energy_seeds`` over 64 seeds (K2);
+  mc        one ``mc_energy_grad`` sample, 30 steps per leg (K1, K2);
+  mc_seeds  one MC epoch of ``train_energy_seeds`` over 64 seeds (K2);
+  fd        one ``fd_energy_grad`` call, 288 perturbed sets (K2).
+For each it runs the steps under ``torch.profiler`` and prints: the wall
 time per step, the device time per step by kernel (largest first), the
-number of kernel launches per step, and the device's busy and idle share
-of the profiled window. The profiler slows the host, so it then times the
+number of device ops per step, and the device's busy and idle share of
+the profiled window. The profiler slows the host, so it then times the
 same steps with the profiler off and prints the idle share that the
 profiled device time leaves in that window: an estimate from two windows,
-labelled so. Needs a CUDA card; imports nothing of JAX.
+labelled so. The epoch paths run their steps as one call of
+``n_epoch = steps`` (one set-up per window). Needs a CUDA card; imports
+nothing of JAX.
 """
 import argparse
 import os
@@ -21,40 +27,59 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PATHS = ("grad", "seeds", "mc", "mc_seeds", "fd")
 
 
-def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--steps", type=int, default=50)
-    args = ap.parse_args()
+def make_runs():
+    """{path: run(k)} running k steps of each path."""
     import torch
-    if not torch.cuda.is_available():
-        sys.exit("profile_torch_step: needs a CUDA card")
-    sys.path.insert(0, ROOT)
-    from torch.profiler import ProfilerActivity, profile
 
     from diffquantum_tpu_torch.gradients.adjoint import energy_and_grad
+    from diffquantum_tpu_torch.gradients.fd import fd_energy_grad
+    from diffquantum_tpu_torch.gradients.mc import mc_energy_grad
     from diffquantum_tpu_torch.models import maxcut
+    from diffquantum_tpu_torch.parallel import train_energy_seeds
+    from diffquantum_tpu_torch.train.config import TrainConfig
 
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip())
     prob = maxcut.build_maxcut(12, maxcut.ring_graph(12), n_basis=6)
     coeff = torch.tensor(1e-3 * np.random.default_rng(0).standard_normal(
         prob.envelope.coeff_shape), dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    common = (prob.ham, prob.envelope, prob.measurement)
 
-    def step():
-        return energy_and_grad(prob.ham, prob.envelope, prob.measurement,
-                               coeff, prob.psi0, prob.T, 30)
+    def loop(fn):
+        def run(k):
+            for _ in range(k):
+                fn()
+        return run
 
-    for _ in range(20):
-        step()
+    def seeds(**kw):
+        return lambda k: train_energy_seeds(
+            *common, prob.psi0, prob.T, TrainConfig(n_epoch=k, **kw),
+            n_seeds=64)
+
+    return {
+        "grad": loop(lambda: energy_and_grad(*common, coeff, prob.psi0,
+                                             prob.T, 30)),
+        "seeds": seeds(),
+        "mc": loop(lambda: mc_energy_grad(*common, coeff, prob.psi0, prob.T,
+                                          gen, 30)),
+        "mc_seeds": seeds(grad_mode="mc", n_step=30),
+        "fd": loop(lambda: fd_energy_grad(*common, coeff, prob.psi0, prob.T,
+                                          None, 30)),
+    }
+
+
+def profile_path(name, run, n):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run(5)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.steps):
-            step()
+        run(n)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []  # device-side events only: kernels, copies, memsets
@@ -67,27 +92,45 @@ def main():
             rows.append((dev_us, ev.count, ev.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
-    n = args.steps
-    print(f"wall per step {wall_ms / n!r} ms over {n} profiled steps "
-          "(profiler on)")
-    print(f"device busy per step {busy_ms / n!r} ms; busy share "
+    print(f"[{name}] wall per step {wall_ms / n!r} ms over {n} profiled "
+          "steps (profiler on)")
+    print(f"[{name}] device busy per step {busy_ms / n!r} ms; busy share "
           f"{busy_ms / wall_ms!r}, idle share {1 - busy_ms / wall_ms!r}")
     launches = sum(r[1] for r in rows if r[1]) / n
-    print(f"device ops (kernels, copies, memsets) per step {launches!r}")
-    print("device time per step by name (us, calls per step, name):")
+    print(f"[{name}] device ops (kernels, copies, memsets) per step "
+          f"{launches!r}")
+    print(f"[{name}] device time per step by name (us, calls per step, "
+          "name):")
     for dev_us, count, key in rows[:20]:
         print(f"  {dev_us / n:10.3f}  {count / n:6.2f}  {key[:90]}")
     if not rows:
-        print("the profiler recorded no device time")
+        print(f"[{name}] the profiler recorded no device time")
 
     t0 = time.perf_counter()
-    for _ in range(n):
-        step()
+    run(n)
     torch.cuda.synchronize()
     off_ms = (time.perf_counter() - t0) * 1e3 / n
-    print(f"wall per step {off_ms!r} ms over {n} steps (profiler off); "
-          f"idle share estimated from the two windows (profiled device "
-          f"busy over this wall) {1 - busy_ms / n / off_ms!r}")
+    print(f"[{name}] wall per step {off_ms!r} ms over {n} steps (profiler "
+          f"off); idle share estimated from the two windows (profiled "
+          f"device busy over this wall) {1 - busy_ms / n / off_ms!r}")
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--path", choices=PATHS + ("all",), default="grad")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("profile_torch_step: needs a CUDA card")
+    sys.path.insert(0, ROOT)
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    runs = make_runs()
+    for name in (PATHS if args.path == "all" else (args.path,)):
+        profile_path(name, runs[name], args.steps)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """Guards of the PyTorch port: it imports neither JAX nor the JAX package,
 its entry points refuse to run on the CPU unless asked, what is not
-ported raises NotImplementedError instead of falling back, and
-chip_smoke.py fails without a card."""
+ported raises NotImplementedError instead of falling back (device meshes,
+LR schedules, checkpoints, dense and channel objectives, the 18+ qubit
+engines), and chip_smoke.py fails without a card."""
 import ast
 import os
 import pathlib
@@ -16,10 +17,12 @@ from diffquantum_tpu_torch import convert
 from diffquantum_tpu_torch.dynamics import hamiltonian as tham
 from diffquantum_tpu_torch.dynamics import product as tprod
 from diffquantum_tpu_torch.dynamics.propagator import evolve
+from diffquantum_tpu_torch.gradients.mc import envelope_jacobian
 from diffquantum_tpu_torch.measure import Measurement
 from diffquantum_tpu_torch.models import maxcut as tmaxcut
 from diffquantum_tpu_torch.ops import linalg
 from diffquantum_tpu_torch.ops.cpx import CP
+from diffquantum_tpu_torch.parallel.mesh import make_mesh, train_energy_seeds
 from diffquantum_tpu_torch.pulses.envelope import SimpleEnvelope
 from diffquantum_tpu_torch.train.config import TrainConfig
 from diffquantum_tpu_torch.train.energy import train_energy
@@ -34,7 +37,7 @@ def _forbidden(name: str) -> bool:
 
 def test_port_imports_no_jax():
     files = sorted((REPO / "diffquantum_tpu_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch_step.py"]
     assert len(files) > 15
     bad = []
     for f in files:
@@ -83,41 +86,55 @@ def test_unported_backends_raise(backend):
                n_steps=4, backend=backend)
 
 
-@pytest.mark.parametrize("n", [18, 19])
-def test_router_raises_past_the_streamed_band(n):
+def _ham(n):
     d = 2**n
-    ham = tham.ControlledHamiltonian.create_structured(
+    return tham.ControlledHamiltonian.create_structured(
         d, (tham.TermStructure(kind="diag", diag=linalg.zz_diagonal(n, 0, 1)),
             tham.TermStructure(kind="1q", qubit=0, local=linalg.X)))
+
+
+@pytest.mark.parametrize("n", [18, 19])
+def test_router_raises_past_the_streamed_band(n):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tprod.select_engine(ham)
+        tprod.select_engine(_ham(n))
 
 
-@pytest.mark.parametrize("what", ["mc", "fd", "cosine", "checkpoint",
-                                  "sampled", "dense", "batched", "create"])
+@pytest.mark.parametrize("what", ["mesh", "cosine", "checkpoint",
+                                  "dense_sampling", "dense", "batched_18q",
+                                  "create", "envelope_jacobian"])
 def test_unported_features_raise(what):
     p = _small_problem()
     cfg = TrainConfig(n_epoch=1)
     run = lambda c: train_energy(p.ham, p.envelope, p.measurement,  # noqa
                                  p.psi0, p.T, c)
     call = {
-        "mc": lambda: run(cfg.replace(grad_mode="mc")),
-        "fd": lambda: run(cfg.replace(grad_mode="fd")),
+        "mesh": lambda: train_energy_seeds(
+            p.ham, p.envelope, p.measurement, p.psi0, p.T, cfg, n_seeds=2,
+            mesh=object()),
         "cosine": lambda: run(cfg.replace(lr_schedule="cosine")),
         "checkpoint": lambda: run(cfg.replace(checkpoint_dir="ckpt")),
-        "sampled": lambda: tmaxcut.build_maxcut(
-            10, tmaxcut.ring_graph(10), sampling=True, device="cpu"),
+        "dense_sampling": lambda: Measurement.create(
+            np.eye(4), terms=[(np.eye(4), 1.0)], sampling=True),
         "dense": lambda: tmaxcut.build_maxcut(
             4, tmaxcut.ring_graph(4), dense=True, device="cpu"),
-        "batched": lambda: tprod.evolve_product_fused(
-            p.ham, p.envelope, torch.zeros(p.envelope.coeff_shape),
-            CP(p.psi0.re[None], p.psi0.im[None]), 0.0, p.T, horizon=p.T,
-            n_steps=4),
+        "batched_18q": lambda: tprod.evolve_product_fused(
+            _ham(18), SimpleEnvelope(basis="bspline", n_basis=4,
+                                     omegas=(1.0, 1.0)),
+            torch.zeros((2, 2, 4)), CP(torch.zeros((2, 2**18)),
+                                       torch.zeros((2, 2**18))),
+            0.0, 1.0, horizon=1.0, n_steps=2),
         "create": lambda: tham.ControlledHamiltonian.create(
             np.zeros((2, 2)), []),
+        "envelope_jacobian": lambda: envelope_jacobian(
+            p.envelope, torch.zeros(p.envelope.coeff_shape), 0.5, p.T),
     }[what]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         call()
+
+
+def test_make_mesh_raises():
+    with pytest.raises(NotImplementedError, match="item 18"):
+        make_mesh({"data": 4})
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
