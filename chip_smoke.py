@@ -7,12 +7,17 @@ Run from the root of a checkout. In order, and failing (non-zero exit)
 at the first phase that does not hold:
 
 1. card and build: the card's name and power limit (nvidia-smi), then
-   every ``csrc/*.cu`` built with nvcc, with its time and the
-   ``-Xptxas -v`` register and shared-memory lines;
+   every ``csrc/*.cu`` built with nvcc (one process each, started
+   together), with its time and the ``-Xptxas -v`` register and
+   shared-memory lines;
 2. kernels against their plain PyTorch versions on the card, case by
    case, forward and backward: K1 (one state) and K2 (a batch of states
    with per-member angle rows, one shared row, or group rows each
    serving a run of members), at the shapes listed in phase_kernels;
+   then the packed-phase pair (csrc/packed_phase.cu) through K3's entry
+   point at 18 qubits and K5's single and batched entry points at 19-24,
+   the cases listed in phase_packed_kernels (hops inside and across the
+   tile boundary, two sign planes, T = 1, B > 1);
 3. the paths through the user's entry points, each with the kernels'
    launch counters set to 0 just before it and read just after:
    a. the 12-qubit ring MaxCut adjoint gradient (``energy_and_grad``)
@@ -27,6 +32,13 @@ at the first phase that does not hold:
       ``train_energy_seeds(grad_mode='mc')`` (K1, K2);
    d. ``fd_energy_grad``: 288 perturbed coefficient sets as one K2
       forward;
+   e. the frontier ring MaxCut (n_basis 6, 30 steps, full width): at 18
+      qubits ``energy_and_grad`` and 20 epochs of ``train_energy`` (K3,
+      no K5); at 20 qubits ``energy_and_grad`` and 8 seeds x 3 epochs of
+      ``train_energy_seeds`` (K5 batched), each seed against itself run
+      alone (K5 single); at 24 qubits ``energy_and_grad`` and 3 epochs of
+      ``train_energy`` (K5), the value against the eager engine at 30
+      steps and the gradient at 4;
    each checked against the eager Strang engine on the card
    (``backend='product'``) or the adjoint gradient, with the limits
    named below;
@@ -35,7 +47,9 @@ at the first phase that does not hold:
    the MC epoch's branch leg (3072 members, 64 rows); the 12-qubit grad
    step, the 16-qubit 1000-step grad step, the 64-seed adjoint epoch,
    the MC gradient, the 64-seed MC epoch and the FD gradient, each
-   beside the eager engine's time;
+   beside the eager engine's time; K3 at 18 qubits and K5 at 20 and 24
+   (and batched, B = 8 at 20), the 18/20/24-qubit grad steps and the
+   20-qubit 8-seed epoch, with the host's time to enqueue one chain;
 5. a JSON line of per-kernel numbers, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -81,6 +95,18 @@ MC_EAGER_REL = 1e-4
 MC_COS_MIN = 0.99
 FD_EAGER_REL = 5e-3
 FD_ADJ_REL = 1e-2
+
+# The packed-phase pair (K3, K5) against its plain version: forward atol
+# on the state, gradients relative to their max-norm. An H100 run read
+# 2.6e-8 forward at worst (K3 18q B=4) and 2.7e-5 on d theta_x (K5 20q,
+# two sign planes, T=4), so the limits sit ~4x and ~3.7x above.
+TOL_PK = {"fwd": 1e-7, "grad": 1e-4}
+# Frontier paths against the eager engine (value atol, gradient relative
+# to its max-norm), and each seed of the 20q population against itself
+# run alone on single K5 (per-epoch losses, absolute).
+FRONTIER_VALUE_ATOL = 5e-5
+FRONTIER_GRAD_REL = 1e-4
+SEED_ALONE_ATOL = 1e-5
 
 
 def fail(msg: str):
@@ -202,7 +228,8 @@ def _random_cp(rng, shape, scale):
                 for x in v))
 
 
-def _check_case(label, kernel, tol, out, ref, got, want):
+def _check_case(label, kernel, tol, out, ref, got, want,
+                names="dpsi_re, dpsi_im, dtheta_half, dtheta_x"):
     """Fail unless the kernel's forward ``out`` and backward ``got`` match
     the plain version's ``ref`` and ``want``; returns (forward max abs
     error, backward max abs error, backward relative errors)."""
@@ -215,8 +242,7 @@ def _check_case(label, kernel, tol, out, ref, got, want):
     bwd_abs = max(float((a - b).abs().max()) for a, b in zip(got, want))
     if not all(np.isfinite(r) and r <= tol["grad"] for r in rels):
         fail(f"{label}: {kernel} backward differs from plain: relative "
-             f"errors (dpsi_re, dpsi_im, dtheta_half, dtheta_x) {rels} "
-             f"(bound {tol['grad']})")
+             f"errors ({names}) {rels} (bound {tol['grad']})")
     return fwd_err, bwd_abs, rels
 
 
@@ -331,20 +357,209 @@ def phase_kernels():
     return errs
 
 
-def zero_counts():
+# --------------------------------------------------------------------------
+# the frontier sizes: the packed-phase pair (K3 at 18 qubits, K5 at 19-24)
+# --------------------------------------------------------------------------
+
+_PROBLEMS = {}
+
+
+def frontier_problem(n, graph="ring"):
+    """The n-qubit MaxCut at full width (n_basis 6), built once per run;
+    'random' is ``random_graph(n, p=0.25, seed=1)`` (two sign planes at
+    20 qubits). Logs the host's build and packed-table times and memory."""
+    import resource
+    from diffquantum_tpu_torch.dynamics.product import (_packed_tables,
+                                                        select_engine)
+    from diffquantum_tpu_torch.models import maxcut
+    key = (n, graph)
+    if key not in _PROBLEMS:
+        edges = maxcut.ring_graph(n) if graph == "ring" \
+            else maxcut.random_graph(n, p=0.25, seed=1)
+        t0 = time.perf_counter()
+        prob = maxcut.build_maxcut(n, edges, n_basis=6, device=DEVICE)
+        t1 = time.perf_counter()
+        engine = select_engine(prob.ham)          # pack_diag_signs
+        t2 = time.perf_counter()
+        signs = _packed_tables(prob.ham, DEVICE)[0]  # parity masks, planes
+        t3 = time.perf_counter()
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+        log(f"host: {n}q {graph} MaxCut ({len(edges)} edges): build_maxcut "
+            f"{t1 - t0:.3f} s, select_engine {t2 - t1:.3f} s -> {engine!r}, "
+            f"sign planes {tuple(signs.shape)} {t3 - t2:.3f} s; peak host "
+            f"RSS so far {rss:.2f} GiB")
+        _PROBLEMS[key] = prob
+    return _PROBLEMS[key]
+
+
+def packed_inputs(prob, n_steps, seed, members=None, scale=0.4):
+    """(coeff, ud, theta_x, h0th, signs, qubits, kinds) of the packed
+    kernels for ``prob`` with random coefficients from ``seed``: one set
+    (ud [T, S]) or one per member (ud [T, B, S])."""
+    import torch
+    from diffquantum_tpu_torch.dynamics.product import packed_chain_inputs
+    rng = np.random.default_rng(seed)
+    lead = () if members is None else (members,)
+    coeff = torch.tensor(scale * rng.standard_normal(
+        lead + prob.envelope.coeff_shape), dtype=torch.float32, device=DEVICE)
+    return (coeff,) + packed_chain_inputs(prob.ham, prob.envelope, coeff,
+                                          0.0, prob.T, prob.T, n_steps)
+
+
+def mixed_packed(n, n_steps, seed):
+    """An n-qubit plan of X, Y and hop ops sharing qubits (palindromic):
+    one hop inside the pass kernels' tile (bits k-1 and 1), one across
+    its boundary (bits k+1 and k-2) and one on the strided bits (qubits 0
+    and 1); random rows, a random drift h0th and the ring's sign planes.
+    Returns (psi0 [1, d], ud [T, 1, S], theta_x [T, 1, n_ops], h0th,
+    signs, qubits, kinds)."""
+    import torch
+    from diffquantum_tpu_torch.dynamics.product import _symmetrize_rots
     from diffquantum_tpu_torch.ops import fused_product as tfp
-    tfp.FWD_LAUNCHES = tfp.BWD_LAUNCHES = 0
-    tfp.K2_FWD_LAUNCHES = tfp.K2_BWD_LAUNCHES = 0
+    d = 2**n
+    rng = np.random.default_rng(seed)
+    _, _, _, _, signs, _, _ = packed_inputs(frontier_problem(n), 1, seed)
+    k = tfp._tile_plan(n, 2)[0]  # qubit q is bit n-1-q; the tile: bits < k
+    assert k == tfp._tile_plan(n, 4)[0] and k + 2 < n
+    qubits = tuple(range(n)) + (0, n - 3, (n - k, n - 2),
+                                (n - k - 2, n - k + 1), (0, 1))
+    kinds = ("x",) * n + ("y", "y", "hop", "hop", "hop")
+    f32 = dict(dtype=torch.float32, device=DEVICE)
+    tx = torch.tensor(0.3 * rng.standard_normal((n_steps, 1, len(qubits))),
+                      **f32)
+    qubits, kinds, tx = _symmetrize_rots(qubits, kinds, tx, dim=2)
+    ud = torch.tensor(0.2 * rng.standard_normal((n_steps, 1, n + 1)), **f32)
+    h0th = torch.tensor(0.1 * rng.standard_normal(d), **f32)
+    psi0 = _random_cp(rng, (1, d), 1.0 / np.sqrt(2 * d))
+    return psi0, ud, tx.contiguous(), h0th, signs, qubits, kinds
+
+
+def phase_packed_kernels():
+    """K3 and K5 forward and backward through their entry points and
+    autograd against the plain versions. Returns {kernel: (forward,
+    backward) max abs errors} of each one's main-path case (K3: 18q ring,
+    T=30; K5: 24q ring, T=30)."""
+    import torch
+    from diffquantum_tpu_torch.ops import fused_chunked as tfc
+    from diffquantum_tpu_torch.ops import fused_product as tfp
+    from diffquantum_tpu_torch.ops.cpx import CP
+
+    k3 = (tfp.fused_product_evolve_packed,
+          tfp.fused_product_evolve_packed_plain, tfp._adjoint_packed_plain)
+    k5 = (tfc.chunked_evolve_mega, tfc.chunked_evolve_mega_plain,
+          tfc._adjoint_mega_plain)
+    k5b = (tfc.chunked_evolve_mega_batched,
+           tfc.chunked_evolve_mega_batched_plain, tfc._adjoint_mega_plain)
+    # (label, kernel, functions, qubits, steps, members B or None, chain,
+    # main-path case of its kernel)
+    cases = [("K3 18q ring MaxCut, T=30, B=1", "k3", k3, 18, 30, 1, "ring",
+              True),
+             ("K3 18q mixed X/Y/hop plan (hops in, across and above the "
+              "tile), T=4", "k3", k3, 18, 4, 1, "mixed", False),
+             ("K3 18q ring MaxCut, T=30, B=4 per-member rows", "k3", k3, 18,
+              30, 4, "ring", False),
+             ("K3 18q ring MaxCut, T=1", "k3", k3, 18, 1, 1, "ring", False),
+             ("K5 19q ring MaxCut, T=30", "k5", k5, 19, 30, None, "ring",
+              False),
+             ("K5 20q random graph (P=2 sign planes), T=4", "k5", k5, 20, 4,
+              None, "random", False),
+             ("K5 batched 20q ring MaxCut, T=30, B=8 per-member rows", "k5",
+              k5b, 20, 30, 8, "ring", False),
+             ("K5 24q ring MaxCut, T=30", "k5", k5, 24, 30, None, "ring",
+              True)]
+    errs = {}
+    for label, kernel, (entry, plain, adjoint), n, n_steps, b, chain, main \
+            in cases:
+        d = 2**n
+        seed = n * 1000 + n_steps + (b or 0)
+        rng = np.random.default_rng(seed)
+        if chain == "mixed":
+            psi0, ud, tx, h0th, signs, qubits, kinds = mixed_packed(
+                n, n_steps, seed)
+            w = torch.tensor(rng.standard_normal(d), dtype=torch.float32,
+                             device=DEVICE)
+        else:
+            prob = frontier_problem(n, chain)
+            members = None if b == 1 and kernel == "k3" else b
+            _, ud, tx, h0th, signs, qubits, kinds = packed_inputs(
+                prob, n_steps, seed, members)
+            w = prob.measurement.diag
+            psi0 = prob.psi0
+            if kernel == "k3":  # K3 takes [B, d] and [T, B, ...] rows
+                psi0 = CP(psi0.re.expand(b, -1).contiguous(),
+                          psi0.im.expand(b, -1).contiguous())
+                if members is None:
+                    ud, tx = ud[:, None].contiguous(), tx[:, None].contiguous()
+            elif b is not None:
+                psi0 = CP(psi0.re.expand(b, -1).contiguous(),
+                          psi0.im.expand(b, -1).contiguous())
+        args = (h0th, signs, qubits, n, kinds)
+        leaves = [t.clone().requires_grad_(True)
+                  for t in (psi0.re, psi0.im, ud, tx)]
+        before = read_counts()
+        t0 = time.perf_counter()
+        out = entry(CP(leaves[0], leaves[1]), leaves[2], leaves[3], *args)
+        torch.cuda.synchronize()
+        t_k = time.perf_counter() - t0
+        ref = plain(psi0, ud, tx, *args)
+        lam = CP(2.0 * w * ref.re, 2.0 * w * ref.im)  # d<w>/dpsi
+        got = torch.autograd.grad((out.re, out.im), leaves, (lam.re, lam.im))
+        after = read_counts()
+        ran = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        want = {f"{kernel}_forward": 1, f"{kernel}_backward": 1}
+        if entry is tfc.chunked_evolve_mega_batched:
+            want.update(k5_batched_forward=1, k5_batched_backward=1)
+        if ran != want:
+            fail(f"{label}: the entry point launched {ran}, expected {want}")
+        gp, gud, gtx = adjoint(ref, lam, ud, tx, *args)
+        torch.cuda.synchronize()
+        fwd_err, bwd_abs, rels = _check_case(
+            label, kernel.upper(), TOL_PK,
+            (out.re.detach(), out.im.detach()), ref, got,
+            (gp.re, gp.im, gud, gtx), "dpsi_re, dpsi_im, dud, dtheta_x")
+        log(f"kernel check {kernel.upper()} [{label}]: {len(kinds)} ops, "
+            f"{signs.shape[0]} sign plane(s), forward max abs err "
+            f"{fwd_err!r} (atol {TOL_PK['fwd']}); backward relative errors "
+            f"{rels!r} (bound {TOL_PK['grad']}); first launch + sync "
+            f"{t_k * 1e3:.3f} ms")
+        if main:
+            errs[kernel] = (fwd_err, bwd_abs)
+        del out, ref, got, leaves, gp, gud, gtx, lam
+        torch.cuda.empty_cache()
+    return errs
+
+
+COUNTERS = {  # kernel name -> (module, launch counter)
+    "k1_forward": ("fused_product", "FWD_LAUNCHES"),
+    "k1_backward": ("fused_product", "BWD_LAUNCHES"),
+    "k2_forward": ("fused_product", "K2_FWD_LAUNCHES"),
+    "k2_backward": ("fused_product", "K2_BWD_LAUNCHES"),
+    "k3_forward": ("fused_product", "K3_FWD_LAUNCHES"),
+    "k3_backward": ("fused_product", "K3_BWD_LAUNCHES"),
+    # K5's chains of both forms, and the batched form's among them
+    "k5_forward": ("fused_chunked", "K5_FWD_LAUNCHES"),
+    "k5_backward": ("fused_chunked", "K5_BWD_LAUNCHES"),
+    "k5_batched_forward": ("fused_chunked", "K5_BATCHED_FWD_LAUNCHES"),
+    "k5_batched_backward": ("fused_chunked", "K5_BATCHED_BWD_LAUNCHES"),
+}
+
+
+def _counter_module(name):
+    import importlib
+    return importlib.import_module(f"diffquantum_tpu_torch.ops.{name}")
+
+
+def zero_counts():
+    for mod, attr in COUNTERS.values():
+        setattr(_counter_module(mod), attr, 0)
 
 
 def read_counts():
     """{kernel name: launches since zero_counts()} after a sync."""
     import torch
-    from diffquantum_tpu_torch.ops import fused_product as tfp
     torch.cuda.synchronize()
-    return {"k1_forward": tfp.FWD_LAUNCHES, "k1_backward": tfp.BWD_LAUNCHES,
-            "k2_forward": tfp.K2_FWD_LAUNCHES,
-            "k2_backward": tfp.K2_BWD_LAUNCHES}
+    return {k: getattr(_counter_module(mod), attr)
+            for k, (mod, attr) in COUNTERS.items()}
 
 
 def expect_counts(path, counts, want):
@@ -596,6 +811,262 @@ def phase_fd(total):
         fail("FD gradient disagrees with the eager engine or the adjoint")
 
 
+def _add(total, counts):
+    for k, v in counts.items():
+        total[k] += v
+
+
+def _valid_cut(prob, psi, label):
+    """Fail unless psi is a normalized state whose most probable bitstring
+    is a cut of the graph; returns (bitstring, cut)."""
+    n = prob.n_qubits
+    norm = float((psi.re.double() ** 2 + psi.im.double() ** 2).sum())
+    state, cut = prob.readout(psi)
+    log(f"{label}: final state norm {norm!r}; readout bitstring "
+        f"{state:0{n}b}, cut {cut} of max {prob.max_cut}")
+    if not (abs(norm - 1.0) < 1e-4 and 0 <= state < 2**n
+            and 0.0 <= cut <= prob.max_cut and cut == int(cut)):
+        fail(f"{label}: final state is not a normalized state with a valid "
+             f"cut")
+    return state, cut
+
+
+def _eager_check(label, prob, coeff, n_steps, val, grad):
+    """The grad step's value and gradient against the eager engine."""
+    import torch
+    from diffquantum_tpu_torch.gradients.adjoint import energy_and_grad
+    val_e, grad_e = energy_and_grad(prob.ham, prob.envelope,
+                                    prob.measurement, coeff, prob.psi0,
+                                    prob.T, n_steps, backend="product")
+    dv, dg = abs(float(val) - float(val_e)), rel_err(grad, grad_e)
+    log(f"{label}: value {float(val)!r} (eager engine {float(val_e)!r}, "
+        f"diff {dv!r}); gradient relative diff {dg!r} ({n_steps} steps)")
+    if not (torch.isfinite(grad).all() and dv <= FRONTIER_VALUE_ATOL
+            and dg <= FRONTIER_GRAD_REL):
+        fail(f"{label} disagrees with the eager engine (value atol "
+             f"{FRONTIER_VALUE_ATOL}, gradient {FRONTIER_GRAD_REL} of "
+             f"max-norm)")
+
+
+def phase_frontier(total):
+    """The ring MaxCut at 18, 20 and 24 qubits through the entry points:
+    18q on K3 only, 20q and 24q on K5 (the 20q seeds batched)."""
+    import torch
+    from diffquantum_tpu_torch.dynamics.product import select_engine
+    from diffquantum_tpu_torch.dynamics.propagator import (evolve,
+                                                           reference_n_steps)
+    from diffquantum_tpu_torch.gradients.adjoint import energy_and_grad
+    from diffquantum_tpu_torch.measure import diag_expectation
+    from diffquantum_tpu_torch.parallel import train_energy_seeds
+    from diffquantum_tpu_torch.train.config import TrainConfig
+    from diffquantum_tpu_torch.train.energy import train_energy
+
+    for n, engine in ((18, "packed"), (20, "mega"), (24, "mega")):
+        prob = frontier_problem(n)
+        n_steps = reference_n_steps(10, 0.0, prob.T)
+        if select_engine(prob.ham) != engine or n_steps != 30:
+            fail(f"{n}q MaxCut routes to {select_engine(prob.ham)!r} with "
+                 f"{n_steps} steps, expected {engine!r} with 30")
+        kernel = "k3" if engine == "packed" else "k5"
+        coeff = torch.tensor(0.4 * np.random.default_rng(n).standard_normal(
+            prob.envelope.coeff_shape), dtype=torch.float32, device=DEVICE)
+        args = (prob.ham, prob.envelope, prob.measurement)
+        zero_counts()
+        val, grad = energy_and_grad(*args, coeff, prob.psi0, prob.T, n_steps)
+        counts = read_counts()
+        expect_counts(f"energy_and_grad, {n}q", counts,
+                      {f"{kernel}_forward": 1, f"{kernel}_backward": 1})
+        _add(total, counts)
+        if n < 24:
+            _eager_check(f"frontier: {n}q grad step", prob, coeff, n_steps,
+                         val, grad)
+        else:  # the eager engine's 30-step tape would not fit: value only
+            with torch.no_grad():
+                psi_e = evolve(prob.ham, prob.envelope, coeff, prob.psi0,
+                               0.0, prob.T, horizon=prob.T, n_steps=n_steps,
+                               backend="product")
+                val_e = diag_expectation(prob.measurement.diag, psi_e)
+            dv = abs(float(val) - float(val_e))
+            log(f"frontier: 24q grad step value {float(val)!r} (eager "
+                f"engine, no grad, {float(val_e)!r}, diff {dv!r})")
+            if not (torch.isfinite(grad).all()
+                    and dv <= FRONTIER_VALUE_ATOL):
+                fail("24q grad step value disagrees with the eager engine")
+            del psi_e
+            torch.cuda.empty_cache()
+            val4, grad4 = energy_and_grad(*args, coeff, prob.psi0, prob.T, 4)
+            _eager_check("frontier: 24q grad step", prob, coeff, 4, val4,
+                         grad4)
+            torch.cuda.empty_cache()
+
+        if n in (18, 24):
+            epochs = 20 if n == 18 else 3
+            zero_counts()
+            res = train_energy(prob.ham, prob.envelope, prob.measurement,
+                               prob.psi0, prob.T,
+                               TrainConfig(n_epoch=epochs, lr=2e-2))
+            counts = read_counts()
+            expect_counts(f"train_energy adjoint, {n}q, {epochs} epochs",
+                          counts, {f"{kernel}_forward": epochs + 1,
+                                   f"{kernel}_backward": epochs})
+            _add(total, counts)
+            losses = res.losses_raw
+            log(f"frontier: {n}q train_energy {epochs} epochs, loss "
+                f"{losses[0]!r} -> {losses[-1]!r}, wall {res.wall_s:.3f} s")
+            if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+                fail(f"{n}q training loss did not fall")
+            _valid_cut(prob, res.final_state, f"frontier: {n}q")
+            continue
+
+        # 20q: 8 seeds x 3 epochs (K5 batched), each seed alone (K5 single)
+        init = torch.tensor(1e-3 * np.random.default_rng(8).standard_normal(
+            (8,) + prob.envelope.coeff_shape), dtype=torch.float32,
+            device=DEVICE)
+        cfg = TrainConfig(n_epoch=3, lr=2e-2)
+        zero_counts()
+        res = train_energy_seeds(*args, prob.psi0, prob.T, cfg, n_seeds=8,
+                                 init_coeffs=init)
+        counts = read_counts()
+        expect_counts("train_energy_seeds adjoint, 20q, 8 seeds, 3 epochs",
+                      counts, {"k5_forward": 3, "k5_backward": 3,
+                               "k5_batched_forward": 3,
+                               "k5_batched_backward": 3})
+        _add(total, counts)
+        zero_counts()
+        alone = [train_energy(*args, prob.psi0, prob.T, cfg,
+                              init_coeff=init[b]).losses_raw
+                 for b in range(8)]
+        counts = read_counts()
+        expect_counts("train_energy adjoint, 20q, each of the 8 seeds alone",
+                      counts, {"k5_forward": 32, "k5_backward": 24})
+        _add(total, counts)
+        diff = float(np.abs(res.losses - np.asarray(alone).T).max())
+        log(f"frontier: 20q 8 seeds x 3 epochs, mean loss "
+            f"{float(res.losses[0].mean())!r} -> "
+            f"{float(res.losses[-1].mean())!r}; vs each seed alone on single "
+            f"K5: max abs diff {diff!r} (atol {SEED_ALONE_ATOL})")
+        if not (res.losses.shape == (3, 8) and np.all(np.isfinite(res.losses))
+                and np.all(res.losses[-1] < res.losses[0])
+                and diff <= SEED_ALONE_ATOL):
+            fail("20q seed population: losses not finite, not falling or "
+                 "off the seeds run alone")
+    torch.cuda.empty_cache()
+
+
+def packed_bound(n, n_steps, kinds, n_diag, n_planes, backward, members=1):
+    """(bound_ms, bound_by) of one packed chain (K3 or K5) over
+    ``members`` states: each input read once and each output written once
+    (the state, its cotangent, the rows, h0th and the sign planes), and
+    the fp32 operations the function needs per amplitude and stage: the
+    angle from its rows (2 per diagonal term, 2 for the drift and
+    offset), sin and cos (one each), the phase (6; backward 12 for y and
+    lambda, 4 for g = dL/d angle and S0, 2 per term for S_k), and per op
+    pair the rotation (12; backward 32, as ``chain_bound``)."""
+    d, T = 2**n, n_steps
+    pairs = _rot_pairs(kinds, d)
+    rows = members * ((T + 1) * (n_diag + 2) + T * len(kinds))
+    nbytes = 4 * d * (1 + n_planes) + 4 * rows
+    angle = 2 * n_diag + 2 + 2
+    if not backward:
+        nbytes += 16 * d * members
+        ops = members * ((T + 1) * d * (angle + 6) + T * 12 * pairs)
+    else:
+        nbytes += 24 * d * members + 4 * rows
+        ops = members * ((T + 1) * d * (angle + 16 + 2 * n_diag)
+                         + T * 32 * pairs)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_frontier_times():
+    """K3 at 18q and K5 at 20q and 24q (and batched at 20q, B=8), T=30,
+    beside their plain versions and bounds; the host's time to enqueue
+    one chain; the frontier grad steps, the 20q 8-seed epoch, and the eager
+    engine where its tape fits. Returns {kernel: (ms, plain_ms, bound_ms,
+    bound_by)} at the JSON line's shapes (K3 18q, K5 24q)."""
+    import torch
+    from diffquantum_tpu_torch.gradients.adjoint import energy_and_grad
+    from diffquantum_tpu_torch.ops import fused_product as tfp
+    from diffquantum_tpu_torch.ops.cpx import CP
+    from diffquantum_tpu_torch.parallel import train_energy_seeds
+    from diffquantum_tpu_torch.train.config import TrainConfig
+
+    out = {}
+    for kernel, n, b, iters, plain_iters in (("k3", 18, None, 50, 2),
+                                             ("k5", 20, None, 20, 2),
+                                             ("k5", 20, 8, 10, 1),
+                                             ("k5", 24, None, 5, 1)):
+        prob = frontier_problem(n)
+        _, ud, tx, h0th, signs, qubits, kinds = packed_inputs(prob, 30, n, b)
+        if b is None:
+            ud, tx = ud[:, None].contiguous(), tx[:, None].contiguous()
+        members = b or 1
+        psi = CP(prob.psi0.re.expand(members, -1).contiguous(),
+                 prob.psi0.im.expand(members, -1).contiguous())
+        plan = tfp._plan_ops(qubits, kinds, n)
+        udm = tfp.merge_ud_rows(ud)
+        what = kernel.upper()
+        fwd = lambda: tfp._packed_forward_cuda(  # noqa: E731
+            psi.re, psi.im, udm, tx, h0th, signs, plan, n, what)
+        o_re, o_im = fwd()
+        w = prob.measurement.diag
+        lam = CP(2.0 * w * o_re, 2.0 * w * o_im)
+        bwd = lambda: tfp._packed_backward_cuda(  # noqa: E731
+            o_re, o_im, lam.re, lam.im, udm, tx, h0th, signs, plan, n, what)
+        args = (ud, tx, h0th, signs, qubits, n, kinds)
+        runs = {
+            "forward": (fwd, lambda: tfp.fused_product_evolve_packed_plain(
+                psi, *args)),
+            "backward": (bwd, lambda: tfp._adjoint_packed_plain(
+                CP(o_re, o_im), lam, *args))}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fwd()
+        host_ms = (time.perf_counter() - t0) / 10 * 1e3
+        torch.cuda.synchronize()
+        shape = (f"{n}q, T=30, {len(kinds)} ops, {ud.shape[2] - 1} diagonal "
+                 f"terms, B={members}")
+        log(f"time: {kernel}_forward host enqueue {host_ms!r} ms per chain "
+            f"(one ctypes call, ~2T+1 pass launches; {shape})")
+        for part, (kfn, pfn) in runs.items():
+            ms = cuda_ms(kfn, iters, warmup=2)
+            plain_ms = cuda_ms(pfn, plain_iters, warmup=1)
+            bound = packed_bound(n, 30, kinds, ud.shape[2] - 1, signs.shape[0],
+                                 part == "backward", members)
+            log(f"time: {kernel}_{part} {ms!r} ms/chain, plain version "
+                f"{plain_ms!r} ms, bound {bound[0]!r} ms ({bound[1]}) "
+                f"({shape})")
+            if (kernel, n, b) in (("k3", 18, None), ("k5", 24, None)):
+                out[f"{kernel}_{part}"] = (ms, plain_ms) + bound
+        del runs, fwd, bwd, o_re, o_im, lam
+        torch.cuda.empty_cache()
+
+    for n, iters, eager in ((18, 20, True), (20, 10, True), (24, 5, False)):
+        prob = frontier_problem(n)
+        c = torch.tensor(1e-3 * np.random.default_rng(0).standard_normal(
+            prob.envelope.coeff_shape), dtype=torch.float32, device=DEVICE)
+
+        def step(backend="auto", p=prob, c=c):
+            return energy_and_grad(p.ham, p.envelope, p.measurement, c,
+                                   p.psi0, p.T, 30, backend=backend)
+        ms = cuda_ms(step, iters, warmup=2)
+        line = f"time: {n}q 30-step adjoint grad step {ms!r} ms"
+        if eager:
+            line += f", eager engine {cuda_ms(lambda: step('product'), 1, 1)!r} ms"
+        log(line + f" (CUDA events over {iters} chained calls)")
+        torch.cuda.empty_cache()
+
+    prob = frontier_problem(20)
+    args = (prob.ham, prob.envelope, prob.measurement, prob.psi0, prob.T)
+    ms = cuda_ms(lambda: train_energy_seeds(
+        *args, TrainConfig(n_epoch=5, lr=2e-2), n_seeds=8), 1, warmup=1) / 5
+    log(f"time: 20q 8-seed adjoint epoch {ms!r} ms (CUDA events over 5 "
+        f"epochs in one call)")
+    return out
+
+
 def cuda_ms(fn, iters, warmup=3):
     import torch
     for _ in range(warmup):
@@ -763,27 +1234,39 @@ def main():
         f"x{torch.cuda.device_count()}")
     phase_build()
     errs = phase_kernels()
-    launches = {k: 0 for k in ("k1_forward", "k1_backward", "k2_forward",
-                               "k2_backward")}
+    errs.update(phase_packed_kernels())
+    launches = {k: 0 for k in COUNTERS}
     phase_main_path(launches)
     phase_seeds(launches)
     phase_mc(launches)
     phase_fd(launches)
+    phase_frontier(launches)
     log(f"launches over all paths: {launches}")
     for name, n in launches.items():
         if n <= 0:
             fail(f"{name} was launched no time by the paths")
     times = phase_times()
+    times.update(phase_frontier_times())
 
-    replaces = {"k1_forward": 307, "k1_backward": 376, "k2_forward": 672,
-                "k2_backward": 733}
+    # kernel -> (source, TPU kernel it replaces)
+    k12 = "diffquantum_tpu_torch/csrc/fused_product.cu"
+    pk = "diffquantum_tpu_torch/csrc/packed_phase.cu"
+    fp, fc = "diffquantum_tpu/ops/fused_product.py", \
+        "diffquantum_tpu/ops/fused_chunked.py"
+    replaces = {"k1_forward": (k12, f"{fp}:307"),
+                "k1_backward": (k12, f"{fp}:376"),
+                "k2_forward": (k12, f"{fp}:672"),
+                "k2_backward": (k12, f"{fp}:733"),
+                "k3_forward": (pk, f"{fp}:1285"),
+                "k3_backward": (pk, f"{fp}:1364"),
+                "k5_forward": (pk, f"{fc}:695"),
+                "k5_backward": (pk, f"{fc}:766")}
     kernels = []
-    for name, line in replaces.items():
+    for name, (source, line) in replaces.items():
         ms, plain_ms, bound_ms, bound_by = times[name]
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": "diffquantum_tpu_torch/csrc/fused_product.cu",
-            "replaces": f"diffquantum_tpu/ops/fused_product.py:{line}",
+            "name": name, "route": "cuda", "source": source,
+            "replaces": line,
             "launches": launches[name],
             "max_abs_err": errs[name[:2]][name.endswith("backward")],
             "ms": ms, "plain_ms": plain_ms,

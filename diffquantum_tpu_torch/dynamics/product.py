@@ -11,17 +11,22 @@ split stays second order.
 Two engines:
 - :func:`evolve_product`, the eager Strang engine in plain PyTorch (the
   JAX package runs this one in plain XLA), differentiable by autograd;
-- :func:`evolve_product_fused`, the whole chain as one kernel launch with
-  the exact adjoint kernel behind it (:mod:`..ops.fused_product`): K1 for
-  one state, K2 for a batch [B, d] (the streamed band, 10-17 qubits).
+- :func:`evolve_product_fused`, the whole chain on the fused kernels with
+  the exact adjoint kernels behind them, routed by :func:`select_engine`:
+  'streamed' (10-17 qubits, phase tables [T, d]) runs K1 for one state
+  and K2 for a batch [B, d] (:mod:`..ops.fused_product`); 'packed' (18)
+  runs K3 and 'mega' (19-24, no hops) K5, single or batched
+  (:mod:`..ops.fused_chunked`), whose kernels compute the phases from
+  sign bit-planes, so no [T, d] or [n_diag, d] table is built there.
 
 Both take a batch of states with one coefficient set, per-member
 coefficients ``[G, n_controls, n_basis]`` and per-member time grids
 (``T0``/``T`` tensors of shape [G]), G dividing B: consecutive runs of
 B/G members share a coefficient set and grid. G = B is the JAX
 package's per-seed contract; G < B is how the MC estimator's branches
-share their pulses. The 18-24 qubit engines raise (ROADMAP.md, Queue 1
-items 15-16).
+share their pulses. The packed engines take one time grid; their
+per-member grids (the MC estimator's at 18+ qubits) and the hop drive
+sets at 19-24 qubits (K6) raise (ROADMAP.md, Queue 1 item 16).
 
 :func:`apply_structured_terms` gives H_k psi for every control term,
 matrix-free, for the MC estimator's perturbation gates.
@@ -33,15 +38,20 @@ import torch
 
 from ..ops import cpx
 from ..ops.cpx import CP
-from ..ops.fused_product import MAX_QUBITS, diag_rows_device, diag_vec_device
+from ..ops.fused_product import (diag_rows_device, diag_vec_device,
+                                 pack_diag_signs, parity_sign_masks,
+                                 signs_planes_device)
 from .hamiltonian import ControlledHamiltonian
 
-_BAND_MSG = {
-    "packed": "the 18-qubit packed engine (K3) is not ported yet "
-              "(ROADMAP.md, Queue 1 item 15)",
-    "mega": "the 19-24 qubit mega engines (K5, K6) are not ported yet "
-            "(ROADMAP.md, Queue 1 item 16)",
-}
+# Largest size routed to K3 ('packed'); past it K5 ('mega'). The JAX
+# package splits there because an 18-qubit state fits the TPU's VMEM.
+_VMEM_PACKED_MAX = 18
+# Smallest size routed to the packed-phase kernels (tests lower this to
+# exercise the packed machinery at cheap sizes).
+_PACKED_MIN_QUBITS = 18
+
+_K6_MSG = ("hop drive sets at 19-24 qubits run on the hop-mega engine "
+           "(K6), which is not ported yet (ROADMAP.md, Queue 1 item 16)")
 
 
 def split_structure_ext(ham: ControlledHamiltonian):
@@ -98,6 +108,16 @@ def split_structure_ext(ham: ControlledHamiltonian):
     return out
 
 
+def _packed_form(ham: ControlledHamiltonian):
+    """Memoized :func:`..ops.fused_product.pack_diag_signs` of the
+    diagonal rows, the packed-phase probe of :func:`select_engine` (each
+    cold run scans every row, O(2^n) per row)."""
+    if "packed" not in ham._memo:
+        _, diag_rows, *_ = split_structure_ext(ham)
+        ham._memo["packed"] = pack_diag_signs(diag_rows)
+    return ham._memo["packed"]
+
+
 def _pauli_kind(local) -> str | None:
     g = np.asarray(local)
     if np.allclose(g, np.array([[0, 1], [1, 0]])):
@@ -123,18 +143,23 @@ def _symmetrize_rots(qubits, kinds, theta_x, dim: int):
 
 
 def select_engine(ham: ControlledHamiltonian) -> str:
-    """The routing table, as in the JAX package for 10-17 qubits:
+    """The routing table, as in the JAX package:
 
-    | engine     | qubits  | drive sets                                   |
-    |------------|---------|----------------------------------------------|
-    | 'streamed' | 10..17  | Pauli X/Y 1q, diag, hops; the (palindromic)  |
-    |            |         | op list fits 128 angle slots                 |
-    | 'xla'      | else    | the eager product engine                     |
+    | engine     | qubits             | drive sets                        |
+    |------------|--------------------|-----------------------------------|
+    | 'streamed' | 10 .. 17           | Pauli X/Y 1q, diag, hops; the     |
+    |            | (< _PACKED_MIN)    | (palindromic) op list fits 128    |
+    |            |                    | angle slots                       |
+    | 'packed'   | 18                 | + every diagonal control two-     |
+    |            | (.. _VMEM_PACKED_  | valued (<= 120 rows, int32 sign   |
+    |            | MAX)               | bit-planes); hops ride the plan   |
+    | 'mega'     | 19 .. 24, no hops  | the same packed form              |
+    | 'xla'      | everything else    | the eager product engine          |
 
-    At 18-24 qubits the JAX package routes to 'packed' / 'mega' /
-    'mega_hop', whose host helpers come with K3 and K6; asking raises
-    NotImplementedError. 'xla' keeps the JAX name: no fused engine
-    applies."""
+    At 19-24 qubits with hops the JAX package plans a qubit relabeling
+    for its hop-mega engine (K6, 'mega_hop'); that planner and K6 are
+    not ported, so asking raises NotImplementedError. 'xla' keeps the JAX
+    name: no fused engine applies."""
     if ham.structure is None or not (10 <= ham.n_qubits <= 24):
         return "xla"
     if ham.h0_structure is None or ham.h0_structure.kind != "diag":
@@ -146,7 +171,7 @@ def select_engine(ham: ControlledHamiltonian) -> str:
 
 def _select_engine_uncached(ham: ControlledHamiltonian) -> str:
     n = ham.n_qubits
-    n_rot, used = 0, []
+    n_rot, used, hops = 0, [], False
     for st in ham.structure:
         if st.kind == "1q" and _pauli_kind(st.local) is None:
             g = np.asarray(st.local)
@@ -159,23 +184,36 @@ def _select_engine_uncached(ham: ControlledHamiltonian) -> str:
         if st.kind == "hop":
             n_rot += 1
             used += [st.qubit, st.qubit2]
+            hops = True
         elif st.kind == "1q":
             n_rot += 1
             used.append(st.qubit)
         elif st.kind != "diag":
             return "xla"
-    if n > MAX_QUBITS:  # the JAX package's 'packed' band is 18 qubits
-        raise NotImplementedError(
-            _BAND_MSG["packed" if n == MAX_QUBITS + 1 else "mega"])
-    # a shared-qubit (palindromic) sequence doubles the op list
-    doubled = 2 if len(set(used)) < len(used) else 1
+    # a shared-qubit (palindromic) sequence doubles the op list; the JAX
+    # package counts that only where its kernels hold both halves
+    doubled = 2 if (n <= _VMEM_PACKED_MAX
+                    and len(set(used)) < len(used)) else 1
     if n_rot * doubled > 128:
         return "xla"
-    return "streamed"
+    if n < _PACKED_MIN_QUBITS:
+        return "streamed"
+    # 18+: the packed-phase form is mandatory (no [T, d] tables)
+    try:
+        packed = _packed_form(ham)
+    except ValueError:
+        return "xla"
+    if packed is None:
+        return "xla"
+    if n <= _VMEM_PACKED_MAX:
+        return "packed"
+    if hops:
+        raise NotImplementedError(_K6_MSG)
+    return "mega"
 
 
 def fused_eligible(ham: ControlledHamiltonian) -> bool:
-    """Whether the fused K1 engine applies (``select_engine != 'xla'``)."""
+    """Whether a fused engine applies (``select_engine != 'xla'``)."""
     return select_engine(ham) != "xla"
 
 
@@ -221,16 +259,23 @@ def _group_dt(dt, dtype):
     return dt
 
 
-def fused_chain_inputs(ham: ControlledHamiltonian, envelope,
-                       coeff: torch.Tensor, T0, T, horizon: float,
-                       n_steps: int, t_sample: str = "left"):
-    """The fused kernels' inputs for one chain, in f32 on coeff's device:
-    (theta_half, theta_x, op qubits, op kinds). For one coefficient set
-    and scalar times, K1's tables theta_half [T, d] and theta_x
-    [T, n_ops]; for per-member coefficients [G, n_controls, n_basis] or
-    per-member times T0/T [G], K2's tables [T, G, d] and [T, G, n_ops].
-    Hop angles are doubled and shared-qubit plans made palindromic
-    here."""
+def _chain_controls(ham: ControlledHamiltonian, envelope,
+                    coeff: torch.Tensor, T0, T, horizon: float,
+                    n_steps: int, t_sample: str):
+    """(dt, dt as a [G, 1, 1] column or as it is, (u_diag, u_oneq, u_hop)
+    rows [G, k, T] in f32, one_chain): one coefficient set with scalar
+    times is the G = 1 case (one_chain True)."""
+    dt, u = _amplitudes(envelope, coeff, T0, T, horizon, n_steps, t_sample)
+    rows = _control_rows(ham, u, torch.float32)
+    one_chain = u.ndim == 2
+    if one_chain:
+        rows = tuple(x[None] for x in rows)
+    return dt, _group_dt(dt, torch.float32), rows, one_chain
+
+
+def _rotation_inputs(ham: ControlledHamiltonian, dtg, u_oneq, u_hop):
+    """(theta_x [T, G, n_ops], op qubits, op kinds) of the fused kernels:
+    hop angles doubled, shared-qubit plans made palindromic."""
     _, _, _, _, oneq_qubits, oneq_locals, _, hop_pairs = \
         split_structure_ext(ham)
     kinds = tuple(_pauli_kind(g) for g in oneq_locals)
@@ -239,21 +284,29 @@ def fused_chain_inputs(ham: ControlledHamiltonian, envelope,
             "fused backend supports Pauli X/Y 1q drives only (diagonal "
             "locals fold into the phases); use backend='product' for "
             "general involutory generators")
-    rdt = torch.float32
-    dt, u = _amplitudes(envelope, coeff, T0, T, horizon, n_steps, t_sample)
-    diag_table, h0_vec = _tables(ham, rdt, u.device)
-    u_diag, u_oneq, u_hop = _control_rows(ham, u, rdt)
     qubits = tuple(oneq_qubits) + tuple(hop_pairs)
     kinds += ("hop",) * len(hop_pairs)
-    one_chain = u.ndim == 2  # K1: u [k, T], the G = 1 case of K2's [G, k, T]
-    if one_chain:
-        u_diag, u_oneq, u_hop = (x[None] for x in (u_diag, u_oneq, u_hop))
-    dtg = _group_dt(dt, rdt)
     theta_x = (dtg * u_oneq).permute(2, 0, 1)             # [T, G, n_x]
     if hop_pairs:  # kernel angle = 2 x (dt x u) on the {01, 10} subspace
         theta_x = torch.cat(
             [theta_x, (2.0 * (dtg * u_hop)).permute(2, 0, 1)], dim=2)
     qubits, kinds, theta_x = _symmetrize_rots(qubits, kinds, theta_x, dim=2)
+    return theta_x, qubits, kinds
+
+
+def fused_chain_inputs(ham: ControlledHamiltonian, envelope,
+                       coeff: torch.Tensor, T0, T, horizon: float,
+                       n_steps: int, t_sample: str = "left"):
+    """The streamed kernels' inputs for one chain, in f32 on coeff's
+    device: (theta_half, theta_x, op qubits, op kinds). For one
+    coefficient set and scalar times, K1's tables theta_half [T, d] and
+    theta_x [T, n_ops]; for per-member coefficients [G, n_controls,
+    n_basis] or per-member times T0/T [G], K2's tables [T, G, d] and
+    [T, G, n_ops]."""
+    _, dtg, (u_diag, u_oneq, u_hop), one_chain = _chain_controls(
+        ham, envelope, coeff, T0, T, horizon, n_steps, t_sample)
+    theta_x, qubits, kinds = _rotation_inputs(ham, dtg, u_oneq, u_hop)
+    diag_table, h0_vec = _tables(ham, torch.float32, u_diag.device)
     theta_half = ((0.5 * dtg) * (h0_vec + torch.matmul(
         u_diag.transpose(1, 2), diag_table))).transpose(0, 1)  # [T, G, d]
     if one_chain:
@@ -261,43 +314,146 @@ def fused_chain_inputs(ham: ControlledHamiltonian, envelope,
     return theta_half.contiguous(), theta_x.contiguous(), qubits, kinds
 
 
+def _packed_tables(ham: ControlledHamiltonian, device):
+    """(signs [P, d] int32, consts [n_diag], scales [n_diag], h0 [d]) on
+    ``device``, memoized per Hamiltonian: the sign planes are built on
+    the device from parity masks wherever the rows are Pauli-Z strings,
+    and copied from :func:`pack_diag_signs`'s host planes otherwise."""
+    key = ("packed_tables", str(device))
+    if key not in ham._memo:
+        _, diag_rows, h0_diag, *_ = split_structure_ext(ham)
+        par = parity_sign_masks(diag_rows)
+        if par is not None:
+            masks, consts, scales = par
+            signs = signs_planes_device(masks, ham.dim, device)
+        else:
+            packed = _packed_form(ham)
+            if packed is None:
+                raise ValueError(
+                    "18+ qubit fused evolution needs the packed-phase form "
+                    "(every diagonal control row two-valued, <= 120 rows); "
+                    "use backend='product' for general diagonals")
+            signs_np, consts, scales = packed
+            signs = torch.as_tensor(signs_np, device=device) \
+                if signs_np.size else torch.zeros((1, ham.dim),
+                                                  dtype=torch.int32,
+                                                  device=device)
+        f32 = dict(dtype=torch.float32, device=device)
+        ham._memo[key] = (signs, torch.as_tensor(consts, **f32),
+                          torch.as_tensor(scales, **f32),
+                          diag_vec_device(h0_diag, torch.float32, device))
+    return ham._memo[key]
+
+
+def packed_chain_inputs(ham: ControlledHamiltonian, envelope,
+                        coeff: torch.Tensor, T0, T, horizon: float,
+                        n_steps: int, t_sample: str = "left"):
+    """The packed kernels' inputs (K3, K5), in f32 on coeff's device: (ud,
+    theta_x, h0th [d], signs [P, d], op qubits, op kinds). ud holds per
+    step the scaled diagonal controls dt/2 u_k w_k and, last, the offset
+    dt/2 sum_k u_k c_k: [T, n_diag+1] for one coefficient set, [T, G,
+    n_diag+1] for G sets (theta_x as :func:`fused_chain_inputs`). No
+    [.., d] table is built per step: the kernels compute the phases."""
+    dt, dtg, (u_diag, u_oneq, u_hop), one_chain = _chain_controls(
+        ham, envelope, coeff, T0, T, horizon, n_steps, t_sample)
+    if isinstance(dt, torch.Tensor) and dt.ndim:
+        raise NotImplementedError(
+            "per-member time grids on the packed engines (the MC "
+            "estimator's at 18+ qubits) are not ported yet (ROADMAP.md, "
+            "Queue 1 item 16)")
+    theta_x, qubits, kinds = _rotation_inputs(ham, dtg, u_oneq, u_hop)
+    signs, consts, scales, h0_vec = _packed_tables(ham, u_diag.device)
+    half = 0.5 * dt
+    ud = torch.cat([half * u_diag * scales[:, None],
+                    (half * torch.matmul(consts, u_diag))[:, None]],
+                   dim=1).permute(2, 0, 1)               # [T, G, n_diag+1]
+    if one_chain:
+        ud, theta_x = ud[:, 0], theta_x[:, 0]
+    return (ud.contiguous(), theta_x.contiguous(), half * h0_vec, signs,
+            qubits, kinds)
+
+
+def packed_evolve(n_qubits: int, psi: CP, ud, theta_x, h0th, signs,
+                  qubits, kinds, fast: bool) -> CP:
+    """The packed dispatch: K3 up to ``_VMEM_PACKED_MAX`` qubits, K5 past
+    it, single for a state [d] or a population of one, batched else.
+    ``psi`` is [d] with rows [T, ...], or [B, d] with rows [T, B, ...].
+    The JAX package chunks a population to fit VMEM; the card's kernels
+    keep the state in global memory and take the whole population in one
+    chain of launches."""
+    from ..ops.fused_chunked import (chunked_evolve_mega,
+                                     chunked_evolve_mega_batched)
+    from ..ops.fused_product import fused_product_evolve_packed
+    args = (h0th, signs, qubits, n_qubits, kinds, fast)
+    if n_qubits <= _VMEM_PACKED_MAX:
+        if psi.ndim == 2:
+            return fused_product_evolve_packed(psi, ud, theta_x, *args)
+        out = fused_product_evolve_packed(CP(psi.re[None], psi.im[None]),
+                                          ud[:, None], theta_x[:, None],
+                                          *args)
+        return CP(out.re[0], out.im[0])
+    if psi.ndim == 1:
+        return chunked_evolve_mega(psi, ud, theta_x, *args)
+    if psi.shape[0] == 1:
+        out = chunked_evolve_mega(CP(psi.re[0], psi.im[0]), ud[:, 0],
+                                  theta_x[:, 0], *args)
+        return CP(out.re[None], out.im[None])
+    return chunked_evolve_mega_batched(psi, ud, theta_x, *args)
+
+
 def evolve_product_fused(ham: ControlledHamiltonian, envelope,
                          coeff: torch.Tensor, psi0: CP, T0, T,
                          horizon: float, n_steps: int, dt_bound=None,
                          precision: str = "full",
                          t_sample: str = "left") -> CP:
-    """Same math as :func:`evolve_product`, as one kernel launch (and one
-    adjoint launch for the gradient): K1 for a state [d], K2 for a batch
-    [B, d] (see the module note for per-member coefficients and times).
-    Runs in f32. ``precision`` 'fast' is accepted and computes what
-    'full' computes (the kernels have no matmul to truncate)."""
+    """Same math as :func:`evolve_product` on the engine
+    :func:`select_engine` names: K1 for a state [d] or K2 for a batch
+    [B, d] ('streamed', one launch and one adjoint launch), K3 ('packed')
+    or K5 ('mega') with phases computed in the kernel (see the module
+    note for per-member coefficients and times). Runs in f32.
+    ``precision`` 'fast' is accepted and computes what 'full' computes
+    (the kernels have no matmul to truncate)."""
     from ..ops.fused_product import (fused_product_evolve,
                                      fused_product_evolve_batched)
 
     if precision not in ("full", "fast"):
         raise ValueError(f"precision must be 'full' or 'fast', "
                          f"got {precision!r}")
-    if select_engine(ham) != "streamed":  # raises past the streamed band
+    engine = select_engine(ham)  # raises for K6's drive sets
+    if engine == "xla":
         raise ValueError("the fused engine does not take this Hamiltonian "
                          "(select_engine gives 'xla'); use "
                          "backend='product'")
+    fast = precision == "fast"
+    if psi0.ndim not in (1, 2):
+        raise ValueError(f"psi0 must be [d] or [B, d], got "
+                         f"{tuple(psi0.shape)}")
+    psi = psi0.astype(torch.float32)
+    if engine != "streamed":
+        ud, theta_x, h0th, signs, qubits, kinds = packed_chain_inputs(
+            ham, envelope, coeff, T0, T, horizon, n_steps, t_sample)
+        if psi.ndim == 2:
+            if ud.ndim == 2:  # one coefficient set for the whole batch
+                ud, theta_x = ud[:, None], theta_x[:, None]
+            b = psi.shape[0]
+            ud = _to_members(ud, b, axis=1).contiguous()
+            theta_x = _to_members(theta_x, b, axis=1).contiguous()
+        elif ud.ndim != 2:
+            raise ValueError("per-member coefficients or times need a "
+                             "batch of states [B, d]")
+        return packed_evolve(ham.n_qubits, psi, ud, theta_x, h0th, signs,
+                             qubits, kinds, fast)
     theta_half, theta_x, qubits, kinds = fused_chain_inputs(
         ham, envelope, coeff, T0, T, horizon, n_steps, t_sample)
-    fast = precision == "fast"
-    if psi0.ndim == 1:
+    if psi.ndim == 1:
         if theta_half.ndim != 2:
             raise ValueError("per-member coefficients or times need a "
                              "batch of states [B, d]")
-        return fused_product_evolve(psi0.astype(torch.float32), theta_half,
-                                    theta_x, qubits, ham.n_qubits, kinds,
-                                    fast)
-    if psi0.ndim != 2:
-        raise ValueError(f"psi0 must be [d] or [B, d], got "
-                         f"{tuple(psi0.shape)}")
+        return fused_product_evolve(psi, theta_half, theta_x, qubits,
+                                    ham.n_qubits, kinds, fast)
     if theta_half.ndim == 2:  # one coefficient set for the whole batch
         theta_half, theta_x = theta_half[:, None], theta_x[:, None]
-    return fused_product_evolve_batched(psi0.astype(torch.float32),
-                                        theta_half, theta_x, qubits,
+    return fused_product_evolve_batched(psi, theta_half, theta_x, qubits,
                                         ham.n_qubits, kinds, fast)
 
 

@@ -21,10 +21,6 @@ _UNPORTED = {
             "(ROADMAP.md, Queue 1 item 12)",
     "apply": "the dense 'apply' backend is not ported yet "
              "(ROADMAP.md, Queue 1 item 12)",
-    "packed": "the 'packed' engine (K3, 18 qubits) is not ported yet "
-              "(ROADMAP.md, Queue 1 item 15)",
-    "mega": "the 'mega' engine (K5, 19-24 qubits) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 16)",
     "mega_hop": "the 'mega_hop' engine (K6, 19-24 qubits) is not ported "
                 "yet (ROADMAP.md, Queue 1 item 16)",
 }
@@ -73,10 +69,12 @@ def evolve(
     """Evolve ``psi0`` from ``T0`` to ``T`` under H(t) = H0 + sum u_k(t) H_k.
 
     backend: 'auto' | 'product' | 'product_fused'. 'auto' takes the fused
-    engine (K1 for a state [d], K2 for a batch [B, d]) for a float32 CUDA
-    state that :func:`..product.fused_eligible` accepts, else the eager
-    'product' engine (always, on the CPU). Unported engines raise
-    NotImplementedError; none falls back. ``T0``/``T`` may be tensors on
+    engine (:func:`..product.select_engine`: K1 or K2 at 10-17 qubits, K3
+    at 18, K5 at 19-24) for a float32 CUDA state that
+    :func:`..product.fused_eligible` accepts, else the eager 'product'
+    engine (always, on the CPU). Unported backends raise
+    NotImplementedError; none falls back. The engine names 'packed' and
+    'mega' are no backends here, as in the JAX package. ``T0``/``T`` may be tensors on
     the state's device, 0-dim or one per member (see
     :mod:`..product`), so a split time drawn on the card is never copied
     to the host. ``tol`` and ``dt_bound`` belong to the dense backends and

@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 
 from ..dynamics.propagator import evolve
+from .mc import check_sampled_size
 from ..measure import Measurement, measure
 from ..ops.cpx import CP
 
@@ -31,6 +32,7 @@ def fd_energy_grad(ham, envelope, measurement: Measurement,
     """Central-difference gradient over all coefficients, one batched
     evolution; shaped like ``coeff``. ``generator`` draws the shots and
     noise of a sampled or noisy measurement (None when exact)."""
+    check_sampled_size(ham, "the FD gradient")
     shape = coeff.shape
     n_params = coeff.numel()
     flat = coeff.reshape(-1)

@@ -46,6 +46,19 @@ from ..ops.cpx import CP
 from ..pulses.basis import basis_matrix
 
 STRATEGIES = ("iid", "antithetic", "stratified")
+# At 18 qubits and up the JAX package runs MC samples one after another
+# (its 'map' sample mode, `gradients/mc.py:221-232`) on the packed
+# engines; that path is not held on the card yet.
+SAMPLED_MAX_QUBITS = 17
+
+
+def check_sampled_size(ham, what: str):
+    """Raise for the MC and FD estimators past ``SAMPLED_MAX_QUBITS``."""
+    if ham.n_qubits > SAMPLED_MAX_QUBITS:
+        raise NotImplementedError(
+            f"{what} at {ham.n_qubits} qubits: the MC and FD gradient "
+            f"estimators at 18+ qubits are not ported yet (ROADMAP.md, "
+            f"Queue 1 item 16)")
 
 
 def envelope_sensitivity(envelope, coeff: torch.Tensor, s, T,
@@ -130,6 +143,7 @@ def mc_grads_per_sample(ham, envelope, measurement: Measurement, coeff,
     shaped like ``s.shape + (n_c, n_b)``. The seed-population trainer
     flattens seeds × samples onto S. Arguments after ``n_steps`` as for
     :func:`mc_energy_grad`."""
+    check_sampled_size(ham, "the MC gradient")
     s = torch.as_tensor(s, dtype=torch.float64, device=psi0.device)
     if not hasattr(envelope, "omegas"):
         envelope_jacobian(envelope, coeff, s, T)

@@ -53,27 +53,33 @@ def _target(name: str) -> Path:
 
 def build_all(names=None) -> dict[str, BuildResult]:
     """Build the named sources (default: every ``csrc/*.cu``), one
-    ``nvcc`` each. Raises with nvcc's output if a build fails."""
+    ``nvcc`` each, all started together. Raises with nvcc's output if a
+    build fails."""
     if names is None:
         names = sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    results = {}
+    results, running = {}, {}
     for name in names:
         out = _target(name)
         if out.exists():
             results[name] = BuildResult(name, out, 0.0, "")
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(CSRC_DIR / f"{name}.cu")],
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
+        proc = subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                                 str(CSRC_DIR / f"{name}.cu")],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, out, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, out, t0) in running.items():
+        log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+            failed.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
         os.replace(tmp, out)
-        results[name] = BuildResult(name, out, time.perf_counter() - t0,
-                                    proc.stdout)
+        results[name] = BuildResult(name, out, time.perf_counter() - t0, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return results
 
 

@@ -1,0 +1,151 @@
+"""K5: the packed-phase Strang chain at 19-24 qubits, for one state or a
+seed population, and its exact adjoint.
+
+Port of the mega form of :mod:`diffquantum_tpu.ops.fused_chunked`:
+``chunked_evolve_mega`` and ``chunked_evolve_mega_batched`` with their
+custom VJPs, whose Pallas kernels are ``_make_mega_fwd`` /
+``_make_mega_bwd``. They compute K3's function
+(:func:`..fused_product.fused_product_evolve_packed`) on X and Y ops; the
+TPU splits the two only because an 18-qubit state fits VMEM and a 19+
+one does not. On the card neither fits one SM's shared memory, so both
+run on one kernel pair, ``csrc/packed_phase.cu``, whose passes keep the
+state in global memory (the TPU layout, ``[C, F, 128]`` slabs streamed
+by DMA with ``txa``/``txb`` rows, has no counterpart here).
+
+Contracts, as in the JAX package: :func:`chunked_evolve_mega` takes psi0
+CP [d], ud [T, n_diag+1], theta_x [T, n_x];
+:func:`chunked_evolve_mega_batched` psi0 [B, d], ud [T, B, n_diag+1],
+theta_x [T, B, n_x] (one launch for the whole population); both take
+h0th [d] (zero cotangent) and signs [P, d] int32 (none). Gradients are
+``_bwd_mega``'s: the merged rows' cotangents summed back onto the T
+steps, and d theta_x per step.
+
+Dispatch: CPU tensors take the plain version, CUDA tensors launch the
+kernel pair. ``K5_FWD_LAUNCHES`` / ``K5_BWD_LAUNCHES`` count the chains
+of both forms; ``K5_BATCHED_FWD_LAUNCHES`` / ``K5_BATCHED_BWD_LAUNCHES``
+the batched form's among them.
+"""
+from __future__ import annotations
+
+import torch
+
+from .cpx import CP
+from .fused_product import (_adjoint_packed_plain,
+                            fused_product_evolve_packed_plain,
+                            run_packed_chain)
+
+MAX_QUBITS = 24  # the JAX engine's limit (pass-B blocks need 8 sublanes)
+
+K5_FWD_LAUNCHES = 0
+K5_BWD_LAUNCHES = 0
+K5_BATCHED_FWD_LAUNCHES = 0
+K5_BATCHED_BWD_LAUNCHES = 0
+
+
+def check_size(n_qubits: int):
+    """The JAX engine's size check (``_plan``): 24 qubits at most."""
+    if n_qubits > MAX_QUBITS:
+        raise ValueError(f"chunked engine supports up to {MAX_QUBITS} "
+                         f"qubits, got {n_qubits}")
+
+
+def _check_kinds(x_qubits, kinds):
+    kinds = tuple(kinds) if kinds else ("x",) * len(x_qubits)
+    if any(k not in ("x", "y") for k in kinds):
+        raise ValueError("the mega engine takes X and Y ops only (hops at "
+                         "19-24 qubits are K6's)")
+    return kinds
+
+
+def _count_single(backward: bool):
+    global K5_FWD_LAUNCHES, K5_BWD_LAUNCHES
+    if backward:
+        K5_BWD_LAUNCHES += 1
+    else:
+        K5_FWD_LAUNCHES += 1
+
+
+def _count_batched(backward: bool):
+    global K5_BATCHED_FWD_LAUNCHES, K5_BATCHED_BWD_LAUNCHES
+    _count_single(backward)
+    if backward:
+        K5_BATCHED_BWD_LAUNCHES += 1
+    else:
+        K5_BATCHED_FWD_LAUNCHES += 1
+
+
+def _one(psi0: CP, ud, theta_x) -> tuple:
+    """The single form's tensors as a population of one."""
+    if psi0.re.ndim != 1 or ud.ndim != 2 or theta_x.ndim != 2:
+        raise ValueError(f"chunked_evolve_mega takes psi0 [d], ud [T, S], "
+                         f"theta_x [T, n_x]; got {tuple(psi0.re.shape)}, "
+                         f"{tuple(ud.shape)}, {tuple(theta_x.shape)}")
+    return (CP(psi0.re[None], psi0.im[None]), ud[:, None], theta_x[:, None])
+
+
+def chunked_evolve_mega(psi0: CP, ud: torch.Tensor, theta_x: torch.Tensor,
+                        h0th: torch.Tensor, signs: torch.Tensor,
+                        x_qubits: tuple, n_qubits: int, kinds: tuple = None,
+                        fast_math: bool = False) -> CP:
+    """The whole packed chain of one state [2^n] as one chain of pass
+    launches (and one for the adjoint), differentiable in psi0, ud and
+    theta_x. ``fast_math`` changes nothing (no matmul to truncate)."""
+    del fast_math
+    check_size(n_qubits)
+    kinds = _check_kinds(x_qubits, kinds)
+    p, u, t = _one(psi0, ud, theta_x)
+    out = run_packed_chain(p, u, t, h0th, signs, x_qubits, n_qubits,
+                           kinds, _count_single, "K5")
+    return CP(out.re[0], out.im[0])
+
+
+def chunked_evolve_mega_batched(psi0: CP, ud: torch.Tensor,
+                                theta_x: torch.Tensor, h0th: torch.Tensor,
+                                signs: torch.Tensor, x_qubits: tuple,
+                                n_qubits: int, kinds: tuple = None,
+                                fast_math: bool = False) -> CP:
+    """Seed-batched :func:`chunked_evolve_mega`: psi0 CP [B, 2^n], ud
+    [T, B, n_diag+1], theta_x [T, B, n_x], per-seed pulses, one chain of
+    launches for the whole population (grid: blocks x B)."""
+    del fast_math
+    check_size(n_qubits)
+    kinds = _check_kinds(x_qubits, kinds)
+    return run_packed_chain(psi0, ud, theta_x, h0th, signs, x_qubits,
+                            n_qubits, kinds, _count_batched, "K5 batched")
+
+
+def chunked_evolve_mega_plain(psi0: CP, ud, theta_x, h0th, signs,
+                              x_qubits: tuple, n_qubits: int,
+                              kinds: tuple = None) -> CP:
+    """K5's forward (single form) in plain PyTorch, any device."""
+    check_size(n_qubits)
+    kinds = _check_kinds(x_qubits, kinds)
+    out = fused_product_evolve_packed_plain(*_one(psi0, ud, theta_x), h0th,
+                                            signs, x_qubits, n_qubits, kinds)
+    return CP(out.re[0], out.im[0])
+
+
+def chunked_evolve_mega_batched_plain(psi0: CP, ud, theta_x, h0th, signs,
+                                      x_qubits: tuple, n_qubits: int,
+                                      kinds: tuple = None) -> CP:
+    """K5's forward (batched form) in plain PyTorch, any device."""
+    check_size(n_qubits)
+    return fused_product_evolve_packed_plain(
+        psi0, ud, theta_x, h0th, signs, x_qubits, n_qubits,
+        _check_kinds(x_qubits, kinds))
+
+
+def _adjoint_mega_plain(psi_T: CP, lam: CP, ud, theta_x, h0th, signs,
+                        x_qubits: tuple, n_qubits: int, kinds: tuple = None):
+    """K5's backward in plain PyTorch, either form (by psi_T's rank):
+    (dpsi0 CP, d ud, d theta_x) in the shapes of the inputs."""
+    check_size(n_qubits)
+    kinds = _check_kinds(x_qubits, kinds)
+    if psi_T.re.ndim == 2:
+        return _adjoint_packed_plain(psi_T, lam, ud, theta_x, h0th, signs,
+                                     x_qubits, n_qubits, kinds)
+    p, u, t = _one(psi_T, ud, theta_x)
+    gp, gud, gtx = _adjoint_packed_plain(p, CP(lam.re[None], lam.im[None]),
+                                         u, t, h0th, signs, x_qubits,
+                                         n_qubits, kinds)
+    return CP(gp.re[0], gp.im[0]), gud[:, 0], gtx[:, 0]

@@ -1,13 +1,18 @@
 """K1 and K2: the whole streamed Strang chain for one state (K1) or a
-batch of states with per-member angles (K2), and their exact adjoints.
+batch of states with per-member angles (K2), and their exact adjoints;
+K3: the packed-phase chain, whose phases the kernel computes from sign
+bit-planes.
 
 Port of :mod:`diffquantum_tpu.ops.fused_product`: ``fused_product_evolve``
 and ``fused_product_evolve_batched`` with their custom VJPs, whose Pallas
 kernels are ``_make_forward_kernel``/``_make_backward_kernel`` (K1) and
-``_make_forward_kernel_b``/``_make_backward_kernel_b`` (K2). The CUDA
-kernels live in ``csrc/fused_product.cu``, where K1 is K2's block code at
-one member; this module holds their wrappers, the op plan, the table
-helpers, and the plain PyTorch versions of all four kernels.
+``_make_forward_kernel_b``/``_make_backward_kernel_b`` (K2), and
+``fused_product_evolve_packed`` (K3, ``_make_forward_kernel_pk`` /
+``_make_backward_kernel_pk``). The CUDA kernels of K1 and K2 live in
+``csrc/fused_product.cu``, where K1 is K2's block code at one member;
+K3's in ``csrc/packed_phase.cu``, which also backs K5
+(:mod:`.fused_chunked`). This module holds their wrappers, the op plan,
+the table helpers, and the plain PyTorch versions of these kernels.
 
 Math (real-pair convention, L real):
   phase    y = e^{-i th} x:  dL/dth = lam_re*y_im - lam_im*y_re (elementwise)
@@ -29,10 +34,18 @@ TPU's row/lane split and XOR-permutation matmuls have no counterpart, so
 ``precision='fast'`` (which on the TPU selects single-pass bf16 matmuls)
 computes exactly what 'full' computes here.
 
+Packed phases (K3, and K5 in :mod:`.fused_chunked`): stage k's angle at
+amplitude j is ``m h0th[j] + off + sum_i a_i (1 - 2 bit_i(j))`` from the
+merged row ``[a_0 .. a_{n_diag-1}, off, m]`` (:func:`merge_ud_rows`) and
+the sign bit-planes (bit i%30 of plane i//30, :func:`pack_diag_signs`):
+no [T, d] table exists, and the backward reduces the phase cotangents to
+``n_diag + 1`` scalars per stage.
+
 Dispatch: CPU tensors take the plain version, CUDA tensors launch the
 kernel (``FWD_LAUNCHES`` / ``BWD_LAUNCHES`` count K1's launches,
-``K2_FWD_LAUNCHES`` / ``K2_BWD_LAUNCHES`` K2's); there is no fallback
-from one to the other.
+``K2_FWD_LAUNCHES`` / ``K2_BWD_LAUNCHES`` K2's, ``K3_FWD_LAUNCHES`` /
+``K3_BWD_LAUNCHES`` K3's, one per chain); there is no fallback from one
+to the other.
 """
 from __future__ import annotations
 
@@ -52,10 +65,15 @@ MAX_OPS = 128          # op-table rows the kernel holds in shared memory
 MIN_QUBITS, MAX_QUBITS = 10, 17   # the router's 'streamed' band
 _BWD_SMEM_MAX_QUBITS = 13  # above this the backward keeps y in scratch
 
+PLANE_BITS = 30        # sign bits per int32 plane
+MAX_PACKED_TERMS = 120  # 4 planes
+
 FWD_LAUNCHES = 0       # K1 launches
 BWD_LAUNCHES = 0
 K2_FWD_LAUNCHES = 0
 K2_BWD_LAUNCHES = 0
+K3_FWD_LAUNCHES = 0
+K3_BWD_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -115,7 +133,7 @@ def parity_sign_masks(diag_rows, cap_terms: bool = True):
     cost). Returns ``(masks, consts, scales)``, or None when a row is not
     of that form (or, with ``cap_terms``, past 120 rows). Host numpy."""
     rows = [np.asarray(r, dtype=np.float64) for r in diag_rows]
-    if cap_terms and len(rows) > 120:
+    if cap_terms and len(rows) > MAX_PACKED_TERMS:
         return None
     if not rows:
         return ((), np.zeros(0), np.zeros(0))
@@ -184,6 +202,73 @@ def diag_vec_device(row, dtype, device) -> torch.Tensor:
     :func:`diag_rows_device`."""
     row = np.asarray(row)
     return diag_rows_device([row], row.shape[0], dtype, device)[0]
+
+
+def signs_planes_device(masks, d: int, device) -> torch.Tensor:
+    """[P, d] int32 sign bit-planes (bit k%30 of plane k//30 set where row
+    k's sign is -1) built on ``device`` from parity masks: bit for bit
+    the planes of :func:`pack_diag_signs` for parity-form rows, with no
+    host table to copy."""
+    if not masks:
+        return torch.zeros((1, d), dtype=torch.int32, device=device)
+    j = torch.arange(d, dtype=torch.int32, device=device)
+    planes = []
+    for p0 in range(0, len(masks), PLANE_BITS):
+        plane = torch.zeros(d, dtype=torch.int32, device=device)
+        for k, m in enumerate(masks[p0:p0 + PLANE_BITS]):
+            plane |= parity_bit_device(j, m) << k
+        planes.append(plane)
+    return torch.stack(planes)
+
+
+def pack_diag_signs(diag_rows):
+    """Decompose two-valued diagonal rows as ``row_k = c_k + w_k s_k``,
+    s_k in {-1, +1}, and pack the signs into int32 bit-planes (plane
+    k//30, bit k%30 set where s_k < 0). Returns (signs [P, d] int32,
+    consts [n], scales [n]) with P = ceil(n/30) >= 1, or None when a row
+    has more than two values or n > 120. Host numpy."""
+    rows = [np.asarray(r, dtype=np.float64) for r in diag_rows]
+    if len(rows) > MAX_PACKED_TERMS:
+        return None
+    if not rows:
+        return (np.zeros((1, 0), np.int32), np.zeros(0), np.zeros(0))
+    d = rows[0].shape[0]
+    signs = np.zeros((max(1, -(-len(rows) // PLANE_BITS)), d), np.int32)
+    consts, scales = [], []
+    for k, row in enumerate(rows):
+        lo, hi = float(row.min()), float(row.max())
+        c, w = 0.5 * (hi + lo), 0.5 * (hi - lo)
+        if w == 0.0:
+            s_neg = np.zeros(d, bool)
+        else:
+            s = (row - c) / w
+            if np.max(np.abs(np.abs(s) - 1.0)) > 1e-9:
+                return None  # more than two distinct values
+            s_neg = s < 0
+        consts.append(c)
+        scales.append(w)
+        signs[k // PLANE_BITS] |= (s_neg.astype(np.int32)
+                                   << (k % PLANE_BITS))
+    return signs, np.asarray(consts), np.asarray(scales)
+
+
+def merge_ud_rows(ud: torch.Tensor) -> torch.Tensor:
+    """[T, B, S] per-step packed rows (slot S-1 the offset) -> the
+    [T+1, B, S+1] merged stage rows: slot S is the h0 multiplier, 1 at
+    the two boundary half-phases and 2 where step t-1's trailing half and
+    step t's leading half fuse (their slots add: the angle is linear in
+    the row). T = 1 keeps its two halves apart. The gradient transpose is
+    :func:`unmerge_phase_grads` over the first S slots."""
+    ud = ud.to(torch.float32)
+    one = torch.ones(ud.shape[1:-1] + (1,), dtype=torch.float32,
+                     device=ud.device)
+    first = torch.cat([ud[0], one], -1)[None]
+    last = torch.cat([ud[-1], one], -1)[None]
+    if ud.shape[0] == 1:
+        return torch.cat([first, last], 0)
+    mid = torch.cat([ud[:-1] + ud[1:],
+                     (2.0 * one).expand((ud.shape[0] - 1,) + one.shape)], -1)
+    return torch.cat([first, mid, last], 0)
 
 
 # ---------------------------------------------------------------------------
@@ -645,3 +730,413 @@ def fused_product_evolve_batched(psi0: CP, theta_half: torch.Tensor,
                                        theta_x, tuple(x_qubits), n_qubits,
                                        kinds, True)
     return CP(re, im)
+
+
+# ---------------------------------------------------------------------------
+# K3: the packed-phase chain, plain version
+# ---------------------------------------------------------------------------
+
+def _check_inputs_pk(psi_re, psi_im, ud, theta_x, h0th, signs, n_qubits,
+                     n_ops, what="fused_product_evolve_packed"):
+    """The packed contract: psi [B, d], ud [T, B, n_diag+1], theta_x
+    [T, B, n_x], h0th [d] f32, signs [P, d] int32 with 30 P >= n_diag."""
+    ts = (psi_re, psi_im, ud, theta_x, h0th, signs)
+    if len({t.device for t in ts}) != 1:
+        raise ValueError(f"{what}: inputs on different devices")
+    for t in ts[:5]:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what} takes float32, got {t.dtype}")
+    if signs.dtype != torch.int32:
+        raise TypeError(f"{what}: signs must be int32, got {signs.dtype}")
+    if not all(t.is_contiguous() for t in ts[2:]):
+        raise ValueError(f"{what} takes contiguous tables")
+    if not 2 <= n_qubits <= 24:
+        raise ValueError(f"{what} runs 2..24 qubits, got {n_qubits}")
+    d = 1 << n_qubits
+    if psi_re.ndim != 2 or psi_re.shape[1] != d \
+            or psi_im.shape != psi_re.shape or psi_re.shape[0] < 1:
+        raise ValueError(f"psi0 must be [B, {d}], got {tuple(psi_re.shape)}")
+    b = psi_re.shape[0]
+    if ud.ndim != 3 or ud.shape[0] < 1 or ud.shape[1] != b \
+            or not 1 <= ud.shape[2] <= MAX_PACKED_TERMS + 1:
+        raise ValueError(f"ud must be [T>=1, {b}, n_diag+1] with n_diag <= "
+                         f"{MAX_PACKED_TERMS}, got {tuple(ud.shape)}")
+    if theta_x.shape != (ud.shape[0], b, n_ops):
+        raise ValueError(f"theta_x must be [{ud.shape[0]}, {b}, {n_ops}], "
+                         f"got {tuple(theta_x.shape)}")
+    n_diag = ud.shape[2] - 1
+    if h0th.shape != (d,) or signs.ndim != 2 or signs.shape[1] != d \
+            or not 1 <= signs.shape[0] <= 4 \
+            or PLANE_BITS * signs.shape[0] < n_diag:
+        raise ValueError(f"h0th must be [{d}] and signs [P, {d}] with "
+                         f"30 P >= {n_diag}, got {tuple(h0th.shape)}, "
+                         f"{tuple(signs.shape)}")
+    if n_ops > MAX_OPS:
+        raise ValueError(f"op plan has {n_ops} ops; the kernel holds "
+                         f"{MAX_OPS}")
+
+
+def _sign_bit(signs: torch.Tensor, k: int) -> torch.Tensor:
+    """bit_k(j) of every amplitude as a float [d]."""
+    return torch.bitwise_and(torch.bitwise_right_shift(
+        signs[k // PLANE_BITS], k % PLANE_BITS), 1).to(torch.float32)
+
+
+def _packed_angle(row: torch.Tensor, h0th, signs, n_diag: int):
+    """A stage's angle [B, d] from its merged rows [B, n_diag+2]: the
+    JAX kernel's formula, one sign row at a time (no [n_diag, d] table)."""
+    th = row[:, n_diag + 1:n_diag + 2] * h0th + row[:, n_diag:n_diag + 1]
+    for k in range(n_diag):
+        a = row[:, k:k + 1]
+        th = th + a - (2.0 * a) * _sign_bit(signs, k)
+    return th
+
+
+def _packed_core(re, im, udm, tx, h0th, signs, plan, d):
+    """The forward stage loop on states [B, d] with packed phases."""
+    n_steps, n_diag = tx.shape[0], udm.shape[2] - 2
+    for k in range(n_steps + 1):
+        th = _packed_angle(udm[k], h0th, signs, n_diag)
+        c, s = torch.cos(th), torch.sin(th)
+        re, im = c * re + s * im, c * im - s * re
+        if k == n_steps:
+            break
+        for op in plan:
+            a = tx[k, :, int(op[0])][:, None]
+            re, im = _rot_plain(re, im, op, torch.cos(a), torch.sin(a), d)
+    return re, im
+
+
+def _packed_adjoint_core(y_re, y_im, l_re, l_im, udm, tx, h0th, signs,
+                         plan, d):
+    """The backward stage loop of :func:`_packed_core`: (dpsi0 re, im,
+    merged-row cotangents [T+1, B, n_diag+1], d theta_x [T, B, n_x]).
+    Slot k of a merged row gets S0 - 2 S_k and the offset slot S0, with
+    S0 = sum_j g_j, S_k = sum_j g_j bit_k(j), g = dL/d angle."""
+    n_steps, n_diag = tx.shape[0], udm.shape[2] - 2
+    b = y_re.shape[0]
+    gud = torch.empty((n_steps + 1, b, n_diag + 1), dtype=torch.float32,
+                      device=y_re.device)
+    gtx = torch.zeros(tx.shape, dtype=torch.float32, device=tx.device)
+    for k in range(n_steps, -1, -1):
+        if k < n_steps:
+            for op in plan[::-1]:
+                j = int(op[0])
+                a = tx[k, :, j][:, None]
+                y_re, y_im, l_re, l_im, g = _undo_rot_plain(
+                    y_re, y_im, l_re, l_im, op, torch.cos(a), torch.sin(a),
+                    d)
+                gtx[k, :, j] = g
+        g = l_re * y_im - l_im * y_re
+        s0 = g.sum(-1)
+        for i in range(n_diag):
+            gud[k, :, i] = s0 - 2.0 * (g * _sign_bit(signs, i)).sum(-1)
+        gud[k, :, n_diag] = s0
+        th = _packed_angle(udm[k], h0th, signs, n_diag)
+        c, s = torch.cos(th), torch.sin(th)
+        y_re, y_im = c * y_re - s * y_im, s * y_re + c * y_im
+        l_re, l_im = c * l_re - s * l_im, s * l_re + c * l_im
+    return l_re, l_im, gud, gtx
+
+
+def fused_product_evolve_packed_plain(psi0: CP, ud: torch.Tensor,
+                                      theta_x: torch.Tensor,
+                                      h0th: torch.Tensor,
+                                      signs: torch.Tensor, x_qubits: tuple,
+                                      n_qubits: int,
+                                      kinds: tuple = None) -> CP:
+    """K3's forward in plain PyTorch: the packed contract of
+    :func:`fused_product_evolve_packed`, any device."""
+    kinds = tuple(kinds) if kinds else ("x",) * len(x_qubits)
+    plan = _plan_ops(x_qubits, kinds, n_qubits)
+    _check_inputs_pk(psi0.re, psi0.im, ud, theta_x, h0th, signs, n_qubits,
+                     len(plan))
+    re, im = _packed_core(psi0.re, psi0.im, merge_ud_rows(ud), theta_x,
+                          h0th, signs, plan, 1 << n_qubits)
+    return CP(re, im)
+
+
+def _adjoint_packed_plain(psi_T: CP, lam: CP, ud, theta_x, h0th, signs,
+                          x_qubits: tuple, n_qubits: int,
+                          kinds: tuple = None):
+    """K3's backward in plain PyTorch: (dpsi0 CP [B, d], d ud
+    [T, B, n_diag+1], d theta_x [T, B, n_x])."""
+    kinds = tuple(kinds) if kinds else ("x",) * len(x_qubits)
+    plan = _plan_ops(x_qubits, kinds, n_qubits)
+    _check_inputs_pk(psi_T.re, psi_T.im, ud, theta_x, h0th, signs,
+                     n_qubits, len(plan))
+    g_re, g_im, gud, gtx = _packed_adjoint_core(
+        psi_T.re, psi_T.im, lam.re, lam.im, merge_ud_rows(ud), theta_x,
+        h0th, signs, plan, 1 << n_qubits)
+    return CP(g_re, g_im), unmerge_phase_grads(gud), gtx
+
+
+# ---------------------------------------------------------------------------
+# K3/K5 on the card: passes over the state in global memory
+# ---------------------------------------------------------------------------
+
+PASS_TILE, PASS_STRIDED, PASS_CROSS = 0, 1, 2
+_PASS_DATA_BYTES = 128 * 1024  # shared-memory planes of one pass block
+_PASS_COLS = 8                 # strided pass: 32-byte row segments
+_CROSS_THREADS = 256
+
+
+def _tile_plan(n_qubits: int, planes: int) -> tuple[int, int]:
+    """(k, lc) of the pass kernels for ``planes`` f32 planes per amplitude
+    (2 forward: the state; 4 backward: y and lambda). A tile pass block
+    holds 2^k consecutive amplitudes (the low k bits, qubits n-k..n-1); a
+    strided pass block holds all 2^(n-k) rows of 2^lc consecutive low-bit
+    columns (the high n-k bits). Both fit ``_PASS_DATA_BYTES``; k splits
+    the bits so that both passes have blocks to spread over the card and
+    the strided rows stay 32-byte segments where the budget allows (at 24
+    qubits the backward's take 16)."""
+    per = 4 * planes
+    tile_bits = (_PASS_DATA_BYTES // per).bit_length() - 1
+    row_bits = (_PASS_DATA_BYTES // (per * _PASS_COLS)).bit_length() - 1
+    k = min(n_qubits, tile_bits,
+            max(n_qubits - row_bits, (n_qubits + 3) // 2))
+    cols = min(_PASS_COLS, 1 << k,
+               _PASS_DATA_BYTES // (per << (n_qubits - k)))
+    if cols < 1:
+        raise ValueError(f"{n_qubits} qubits do not fit the pass kernels")
+    return k, cols.bit_length() - 1
+
+
+def _op_bits(op) -> int:
+    return int(op[2]) | int(op[3])
+
+
+def _pass_plan(plan: np.ndarray, n_qubits: int, k: int, lc: int):
+    """Group one Strang step's ordered ops into passes: the first a tile
+    pass (the stage's phase, then ops on the low k bits), then strided
+    passes (ops on the high bits) and cross passes (one op with a bit on
+    each side, e.g. a hop across the tile boundary). An op joins the
+    latest pass of its kind only when it commutes with every op after
+    that pass (disjoint bits), so the product is the plan's own. Returns
+    (passes [(kind, [plan rows])], table [n_ops, 4] int32 with each op's
+    masks in its pass's local index space)."""
+    low = (1 << k) - 1
+    passes = [(PASS_TILE, [])]
+    for op in plan:
+        bits = _op_bits(op)
+        kind = PASS_TILE if not bits & ~low else (
+            PASS_STRIDED if not bits & low else PASS_CROSS)
+        target = None
+        if kind != PASS_CROSS:
+            for pk, ops in reversed(passes):
+                if pk == kind:
+                    target = ops
+                    break
+                if any(_op_bits(o) & bits for o in ops):
+                    break
+        if target is None:
+            passes.append((kind, [op]))
+        else:
+            target.append(op)
+    rows = []
+    for pk, ops in passes:
+        for op in ops:
+            slot, kd, ma, mb = (int(v) for v in op)
+            if pk == PASS_STRIDED:
+                ma, mb = (ma >> k) << lc, (mb >> k) << lc
+            rows.append((slot, kd, ma, mb))
+    return passes, np.asarray(rows, dtype=np.int32).reshape(len(rows), 4)
+
+
+def _pass_blocks(kind: int, n_qubits: int, k: int, lc: int) -> int:
+    if kind == PASS_TILE:
+        return 1 << (n_qubits - k)
+    if kind == PASS_STRIDED:
+        return 1 << (k - lc)
+    return max(1, min(1024, (1 << n_qubits) // 4 // _CROSS_THREADS))
+
+
+@functools.lru_cache(maxsize=64)
+def _pass_layout(plan_key: tuple, n_qubits: int, planes: int,
+                 n_diag: int):
+    """For a plan (rows as a tuple) and ``planes`` (2 forward, 4
+    backward): (k, lc, passes int32 [n_pass, 6] = (kind, first op row,
+    op count, blocks, partial offset, partial width), op table [n_ops, 4],
+    slot table int32 [n_x, 4] = (partial offset, blocks, width, column)
+    of each angle slot, partial floats per stage and member). Backward
+    blocks write their partial sums at (offset + block * width + column):
+    a tile pass's columns are its ops, then S_0..S_{n_diag-1} and S0."""
+    plan = np.asarray(plan_key, dtype=np.int32).reshape(len(plan_key), 4)
+    k, lc = _tile_plan(n_qubits, planes)
+    passes, table = _pass_plan(plan, n_qubits, k, lc)
+    desc, slots = [], np.zeros((len(plan), 4), np.int32)
+    first, off = 0, 0
+    for i, (kind, ops) in enumerate(passes):
+        blocks = _pass_blocks(kind, n_qubits, k, lc)
+        width = len(ops) + (n_diag + 1 if i == 0 else 0)
+        desc.append((kind, first, len(ops), blocks, off, width))
+        for col, op in enumerate(ops):
+            slots[int(op[0])] = (off, blocks, width, col)
+        first += len(ops)
+        off += blocks * width
+    return (k, lc, np.asarray(desc, np.int32).reshape(-1, 6), table, slots,
+            off)
+
+
+def _packed_lib() -> ctypes.CDLL:
+    lib = _build.load("packed_phase")
+    if not getattr(lib, "_dq_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.dq_pk_forward.argtypes = [p] * 8 + [i] * 9 + [p]
+        lib.dq_pk_forward.restype = i
+        lib.dq_pk_backward.argtypes = [p] * 14 + [i] * 10 + [p]
+        lib.dq_pk_backward.restype = i
+        lib.dq_pk_error_string.argtypes = [i]
+        lib.dq_pk_error_string.restype = ctypes.c_char_p
+        lib._dq_typed = True
+    return lib
+
+
+def _host_ptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def _packed_forward_cuda(psi_re, psi_im, udm, tx, h0th, signs, plan,
+                         n_qubits, what):
+    """One forward chain on the card (K3 or K5): the state [B, d] is
+    copied once and updated in place by the ~2T+1 pass launches that
+    ``dq_pk_forward`` enqueues."""
+    b, n_diag = psi_re.shape[0], udm.shape[2] - 2
+    plan_key = tuple(map(tuple, plan.tolist()))
+    k, lc, desc, table, _, _ = _pass_layout(plan_key, n_qubits, 2, n_diag)
+    ops = _plan_tensor(tuple(map(tuple, table.tolist())), psi_re.device)
+    out_re = psi_re.clone(memory_format=torch.contiguous_format)
+    out_im = psi_im.clone(memory_format=torch.contiguous_format)
+    lib = _packed_lib()
+    with torch.cuda.device(psi_re.device):
+        stream = torch.cuda.current_stream(psi_re.device).cuda_stream
+        code = lib.dq_pk_forward(
+            _ptr(out_re), _ptr(out_im), _ptr(udm), _ptr(tx), _ptr(h0th),
+            _ptr(signs), _ptr(ops), _host_ptr(desc), len(desc), n_qubits, k,
+            lc, tx.shape[0], b, n_diag, signs.shape[0], tx.shape[2], stream)
+    if code != 0:
+        raise RuntimeError(f"{what} forward launch failed: "
+                           f"{lib.dq_pk_error_string(code).decode()} "
+                           f"({code})")
+    return out_re, out_im
+
+
+def _packed_backward_cuda(out_re, out_im, lam_re, lam_im, udm, tx, h0th,
+                          signs, plan, n_qubits, what):
+    """One adjoint chain on the card: (dpsi0 re, im, merged-row cotangents
+    [T+1, B, n_diag+1], d theta_x [T, B, n_x]). The pass blocks write
+    partial sums; one reduction launch sums them in a fixed order."""
+    b, n_diag = out_re.shape[0], udm.shape[2] - 2
+    n_steps, n_x = tx.shape[0], tx.shape[2]
+    plan_key = tuple(map(tuple, plan.tolist()))
+    k, lc, desc, table, slots, stride = _pass_layout(plan_key, n_qubits, 4,
+                                                     n_diag)
+    dev = out_re.device
+    ops = _plan_tensor(tuple(map(tuple, table.tolist())), dev)
+    slot_tab = _plan_tensor(tuple(map(tuple, slots.tolist())), dev)
+    y_re = out_re.clone(memory_format=torch.contiguous_format)
+    y_im = out_im.clone(memory_format=torch.contiguous_format)
+    l_re = lam_re.clone(memory_format=torch.contiguous_format)
+    l_im = lam_im.clone(memory_format=torch.contiguous_format)
+    f32 = dict(dtype=torch.float32, device=dev)
+    part = torch.empty(((n_steps + 1) * b * stride,), **f32)
+    gud = torch.empty((n_steps + 1, b, n_diag + 1), **f32)
+    gtx = torch.empty((n_steps, b, n_x), **f32)
+    lib = _packed_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.dq_pk_backward(
+            _ptr(y_re), _ptr(y_im), _ptr(l_re), _ptr(l_im), _ptr(udm),
+            _ptr(tx), _ptr(h0th), _ptr(signs), _ptr(ops), _host_ptr(desc),
+            _ptr(part), _ptr(slot_tab), _ptr(gud), _ptr(gtx), len(desc),
+            stride, n_qubits, k, lc, n_steps, b, n_diag, signs.shape[0],
+            n_x, stream)
+    if code != 0:
+        raise RuntimeError(f"{what} backward launch failed: "
+                           f"{lib.dq_pk_error_string(code).decode()} "
+                           f"({code})")
+    return l_re, l_im, gud, gtx
+
+
+def _count_k3(backward: bool):
+    global K3_FWD_LAUNCHES, K3_BWD_LAUNCHES
+    if backward:
+        K3_BWD_LAUNCHES += 1
+    else:
+        K3_FWD_LAUNCHES += 1
+
+
+class _PackedEvolve(torch.autograd.Function):
+    """psi(T) and its exact adjoint with packed phases, over [B, d]: the
+    pass kernels on the card (K3, or K5 through :mod:`.fused_chunked`),
+    the plain pair on the CPU. ``count(backward)`` is the calling entry
+    point's launch counter."""
+
+    @staticmethod
+    def forward(ctx, psi_re, psi_im, ud, theta_x, h0th, signs, x_qubits,
+                n_qubits, kinds, count, what):
+        plan = _plan_ops(x_qubits, kinds, n_qubits)
+        _check_inputs_pk(psi_re, psi_im, ud, theta_x, h0th, signs, n_qubits,
+                         len(plan), what)
+        udm = merge_ud_rows(ud)
+        if psi_re.is_cuda:
+            out_re, out_im = _packed_forward_cuda(
+                psi_re, psi_im, udm, theta_x, h0th, signs, plan, n_qubits,
+                what)
+            count(False)
+        elif psi_re.device.type == "cpu":
+            out_re, out_im = _packed_core(psi_re, psi_im, udm, theta_x,
+                                          h0th, signs, plan, 1 << n_qubits)
+        else:
+            raise ValueError(f"{what}: no path for device {psi_re.device}")
+        ctx.save_for_backward(out_re, out_im, udm, theta_x, h0th, signs)
+        ctx.static = (n_qubits, plan, count, what)
+        return out_re, out_im
+
+    @staticmethod
+    def backward(ctx, lam_re, lam_im):
+        out_re, out_im, udm, theta_x, h0th, signs = ctx.saved_tensors
+        n_qubits, plan, count, what = ctx.static
+        lam_re, lam_im = lam_re.contiguous(), lam_im.contiguous()
+        if out_re.is_cuda:
+            gp_re, gp_im, gud, gtx = _packed_backward_cuda(
+                out_re, out_im, lam_re, lam_im, udm, theta_x, h0th, signs,
+                plan, n_qubits, what)
+            count(True)
+        else:
+            gp_re, gp_im, gud, gtx = _packed_adjoint_core(
+                out_re, out_im, lam_re, lam_im, udm, theta_x, h0th, signs,
+                plan, 1 << n_qubits)
+        return (gp_re, gp_im, unmerge_phase_grads(gud), gtx, None, None,
+                None, None, None, None, None)
+
+
+def run_packed_chain(psi0: CP, ud, theta_x, h0th, signs, x_qubits: tuple,
+                     n_qubits: int, kinds, count, what: str) -> CP:
+    """The packed chain over [B, d] through :class:`_PackedEvolve`, the
+    body of K3's and K5's entry points."""
+    kinds = tuple(kinds) if kinds else ("x",) * len(x_qubits)
+    re, im = _PackedEvolve.apply(psi0.re, psi0.im, ud, theta_x, h0th, signs,
+                                 tuple(x_qubits), n_qubits, kinds, count,
+                                 what)
+    return CP(re, im)
+
+
+def fused_product_evolve_packed(psi0: CP, ud: torch.Tensor,
+                                theta_x: torch.Tensor, h0th: torch.Tensor,
+                                signs: torch.Tensor, x_qubits: tuple,
+                                n_qubits: int, kinds: tuple = None,
+                                fast_math: bool = False) -> CP:
+    """Fused evolution with the diagonal phases computed in the kernel
+    (K3), differentiable in psi0, ud and theta_x.
+
+    psi0: CP [B, 2^n] f32; ud: [T, B, n_diag+1] per-step scaled diagonal
+    controls (slot k = dt/2 u_k w_k, the last slot the offset
+    dt/2 sum_k u_k c_k); theta_x: [T, B, n_x] rotation angles (X, Y and
+    hop ops, as :func:`fused_product_evolve`); h0th: [2^n] drift
+    half-angles dt/2 h0 (zero cotangent); signs: [P, 2^n] int32 sign
+    bit-planes (:func:`pack_diag_signs`, no cotangent). ``fast_math``
+    changes nothing, as for :func:`fused_product_evolve`."""
+    del fast_math
+    return run_packed_chain(psi0, ud, theta_x, h0th, signs, x_qubits,
+                            n_qubits, kinds, _count_k3, "K3")

@@ -31,7 +31,8 @@ import numpy as np
 import torch
 
 from ..dynamics.propagator import evolve, reference_n_steps
-from ..gradients.mc import draw_split_times, mc_grads_per_sample
+from ..gradients.mc import (check_sampled_size, draw_split_times,
+                            mc_grads_per_sample)
 from ..measure import Measurement, diag_expectation
 from ..ops.cpx import CP
 from ..train.config import TrainConfig
@@ -81,6 +82,8 @@ def train_energy_seeds(
     if config.grad_mode not in ("adjoint", "mc"):
         raise ValueError(f"train_energy_seeds takes grad_mode 'adjoint' or "
                          f"'mc', got {config.grad_mode!r}")
+    if config.grad_mode == "mc":
+        check_sampled_size(ham, "train_energy_seeds(grad_mode='mc')")
     T = float(T)
     n_steps = reference_n_steps(config.per_step, 0.0, T)
     dev, rdt = psi0.re.device, config.rdtype

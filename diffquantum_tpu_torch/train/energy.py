@@ -43,7 +43,8 @@ import torch
 from ..dynamics.propagator import evolve, reference_n_steps
 from ..gradients.adjoint import energy_and_grad
 from ..gradients.fd import fd_energy_grad
-from ..gradients.mc import mc_energy_grad, mc_energy_grad_batch
+from ..gradients.mc import (check_sampled_size, mc_energy_grad,
+                            mc_energy_grad_batch)
 from ..measure import Measurement, measure
 from ..utils.logger import Logger, NullLogger
 from .config import TrainConfig
@@ -104,6 +105,8 @@ def train_energy(
     mode = config.grad_mode
     if mode not in GRAD_MODES:
         raise ValueError(f"unknown grad_mode {mode!r}")
+    if mode != "adjoint":
+        check_sampled_size(ham, f"train_energy(grad_mode={mode!r})")
     if config.checkpoint_dir:
         raise NotImplementedError(
             "checkpoint/resume is not ported yet (ROADMAP.md, Queue 1 "

@@ -1,13 +1,20 @@
-"""Where the time of the port's 12-qubit MaxCut paths goes, on a card.
+"""Where the time of the port's MaxCut paths goes, on a card.
 
-    python3 scripts/profile_torch_step.py [--steps 50] [--path grad|seeds|mc|mc_seeds|fd|all]
+    python3 scripts/profile_torch_step.py [--steps 50]
+        [--path grad|seeds|mc|mc_seeds|fd|grad18|grad20|grad24|all]
 
-Paths (all on the 12-qubit ring MaxCut, 30 Strang steps):
+Paths (the ring MaxCut, n_basis 6, 30 Strang steps; 12 qubits unless
+named):
   grad      one ``energy_and_grad`` call (K1 forward and adjoint);
   seeds     one adjoint epoch of ``train_energy_seeds`` over 64 seeds (K2);
   mc        one ``mc_energy_grad`` sample, 30 steps per leg (K1, K2);
   mc_seeds  one MC epoch of ``train_energy_seeds`` over 64 seeds (K2);
-  fd        one ``fd_energy_grad`` call, 288 perturbed sets (K2).
+  fd        one ``fd_energy_grad`` call, 288 perturbed sets (K2);
+  grad18    one ``energy_and_grad`` call at 18 qubits (K3);
+  grad20    the same at 20 qubits (K5);
+  grad24    the same at 24 qubits (K5).
+A problem is built only for the paths asked for (the 24-qubit one takes
+the host tens of seconds).
 For each it runs the steps under ``torch.profiler`` and prints: the wall
 time per step, the device time per step by kernel (largest first), the
 number of device ops per step, and the device's busy and idle share of
@@ -27,11 +34,12 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PATHS = ("grad", "seeds", "mc", "mc_seeds", "fd")
+PATHS = ("grad", "seeds", "mc", "mc_seeds", "fd", "grad18", "grad20",
+         "grad24")
 
 
-def make_runs():
-    """{path: run(k)} running k steps of each path."""
+def make_run(name):
+    """run(k), running k steps of the path ``name``."""
     import torch
 
     from diffquantum_tpu_torch.gradients.adjoint import energy_and_grad
@@ -41,7 +49,8 @@ def make_runs():
     from diffquantum_tpu_torch.parallel import train_energy_seeds
     from diffquantum_tpu_torch.train.config import TrainConfig
 
-    prob = maxcut.build_maxcut(12, maxcut.ring_graph(12), n_basis=6)
+    n = int(name[4:]) if name.startswith("grad") and name != "grad" else 12
+    prob = maxcut.build_maxcut(n, maxcut.ring_graph(n), n_basis=6)
     coeff = torch.tensor(1e-3 * np.random.default_rng(0).standard_normal(
         prob.envelope.coeff_shape), dtype=torch.float32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -58,16 +67,17 @@ def make_runs():
             *common, prob.psi0, prob.T, TrainConfig(n_epoch=k, **kw),
             n_seeds=64)
 
+    if name.startswith("grad"):
+        return loop(lambda: energy_and_grad(*common, coeff, prob.psi0,
+                                            prob.T, 30))
     return {
-        "grad": loop(lambda: energy_and_grad(*common, coeff, prob.psi0,
-                                             prob.T, 30)),
         "seeds": seeds(),
         "mc": loop(lambda: mc_energy_grad(*common, coeff, prob.psi0, prob.T,
                                           gen, 30)),
         "mc_seeds": seeds(grad_mode="mc", n_step=30),
         "fd": loop(lambda: fd_energy_grad(*common, coeff, prob.psi0, prob.T,
                                           None, 30)),
-    }
+    }[name]
 
 
 def profile_path(name, run, n):
@@ -128,9 +138,8 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    runs = make_runs()
     for name in (PATHS if args.path == "all" else (args.path,)):
-        profile_path(name, runs[name], args.steps)
+        profile_path(name, make_run(name), args.steps)
 
 
 if __name__ == "__main__":

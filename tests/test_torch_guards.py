@@ -1,8 +1,10 @@
 """Guards of the PyTorch port: it imports neither JAX nor the JAX package,
 its entry points refuse to run on the CPU unless asked, what is not
 ported raises NotImplementedError instead of falling back (device meshes,
-LR schedules, checkpoints, dense and channel objectives, the 18+ qubit
-engines), and chip_smoke.py fails without a card."""
+LR schedules, checkpoints, dense and channel objectives, hop drive sets
+at 19-24 qubits, the MC and FD estimators at 18+ qubits), the JAX
+package's engine names are no backends, and chip_smoke.py fails without a
+card."""
 import ast
 import os
 import pathlib
@@ -17,7 +19,10 @@ from diffquantum_tpu_torch import convert
 from diffquantum_tpu_torch.dynamics import hamiltonian as tham
 from diffquantum_tpu_torch.dynamics import product as tprod
 from diffquantum_tpu_torch.dynamics.propagator import evolve
-from diffquantum_tpu_torch.gradients.mc import envelope_jacobian
+from diffquantum_tpu_torch.gradients.fd import fd_energy_grad
+from diffquantum_tpu_torch.gradients.mc import (envelope_jacobian,
+                                                mc_energy_grad,
+                                                mc_energy_grad_batch)
 from diffquantum_tpu_torch.measure import Measurement
 from diffquantum_tpu_torch.models import maxcut as tmaxcut
 from diffquantum_tpu_torch.ops import linalg
@@ -76,27 +81,42 @@ def _small_problem():
                                 device="cpu")
 
 
-@pytest.mark.parametrize("backend", ["expm", "apply", "packed", "mega",
-                                     "mega_hop"])
-def test_unported_backends_raise(backend):
+@pytest.mark.parametrize("backend,error,match", [
+    pytest.param("expm", NotImplementedError, "ROADMAP.md", id="expm"),
+    pytest.param("apply", NotImplementedError, "ROADMAP.md", id="apply"),
+    # engine names, which the JAX package's evolve does not take either
+    pytest.param("packed", ValueError, "unknown backend", id="packed"),
+    pytest.param("mega", ValueError, "unknown backend", id="mega"),
+    pytest.param("mega_hop", NotImplementedError, "ROADMAP.md",
+                 id="mega_hop")])
+def test_unported_backends_raise(backend, error, match):
     p = _small_problem()
     c = torch.zeros(p.envelope.coeff_shape)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(error, match=match):
         evolve(p.ham, p.envelope, c, p.psi0, 0.0, p.T, horizon=p.T,
                n_steps=4, backend=backend)
 
 
-def _ham(n):
+def _ham(n, hop=False):
     d = 2**n
-    return tham.ControlledHamiltonian.create_structured(
-        d, (tham.TermStructure(kind="diag", diag=linalg.zz_diagonal(n, 0, 1)),
-            tham.TermStructure(kind="1q", qubit=0, local=linalg.X)))
+    terms = [tham.TermStructure(kind="diag", diag=linalg.zz_diagonal(n, 0, 1)),
+             tham.TermStructure(kind="1q", qubit=0, local=linalg.X)]
+    if hop:
+        terms.append(tham.TermStructure(kind="hop", qubit=1, qubit2=2))
+    return tham.ControlledHamiltonian.create_structured(d, tuple(terms))
 
 
 @pytest.mark.parametrize("n", [18, 19])
 def test_router_raises_past_the_streamed_band(n):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tprod.select_engine(_ham(n))
+    """Past the streamed band the router names K3 ('packed', 18 qubits,
+    hops too) and K5 ('mega', 19-24); only hop drive sets at 19-24
+    qubits, which the JAX package sends to K6, raise."""
+    assert tprod.select_engine(_ham(n)) == ("packed" if n == 18 else "mega")
+    if n == 18:
+        assert tprod.select_engine(_ham(n, hop=True)) == "packed"
+    else:
+        with pytest.raises(NotImplementedError, match="K6.*ROADMAP.md"):
+            tprod.select_engine(_ham(n, hop=True))
 
 
 @pytest.mark.parametrize("what", ["mesh", "cosine", "checkpoint",
@@ -117,18 +137,51 @@ def test_unported_features_raise(what):
             np.eye(4), terms=[(np.eye(4), 1.0)], sampling=True),
         "dense": lambda: tmaxcut.build_maxcut(
             4, tmaxcut.ring_graph(4), dense=True, device="cpu"),
-        "batched_18q": lambda: tprod.evolve_product_fused(
+        # the MC estimator's batch at 18 qubits (item 16)
+        "batched_18q": lambda: mc_energy_grad_batch(
             _ham(18), SimpleEnvelope(basis="bspline", n_basis=4,
                                      omegas=(1.0, 1.0)),
-            torch.zeros((2, 2, 4)), CP(torch.zeros((2, 2**18)),
-                                       torch.zeros((2, 2**18))),
-            0.0, 1.0, horizon=1.0, n_steps=2),
+            None, torch.zeros((2, 4)), CP(torch.zeros(2**18),
+                                          torch.zeros(2**18)),
+            1.0, None, 2, 4, s=torch.full((4,), 0.5)),
         "create": lambda: tham.ControlledHamiltonian.create(
             np.zeros((2, 2)), []),
         "envelope_jacobian": lambda: envelope_jacobian(
             p.envelope, torch.zeros(p.envelope.coeff_shape), 0.5, p.T),
     }[what]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        call()
+
+
+@pytest.mark.parametrize("entry", ["mc_energy_grad", "mc_energy_grad_batch",
+                                   "fd_energy_grad", "train_energy_mc",
+                                   "train_energy_fd", "train_energy_seeds_mc"])
+def test_sampled_estimators_raise_at_18_qubits(entry):
+    """The MC and FD estimators stop at 17 qubits until their 18+ qubit
+    path (samples one after another, as the JAX package runs them) is
+    held on the card (ROADMAP.md, Queue 1 item 16)."""
+    ham = _ham(18)
+    env = SimpleEnvelope(basis="bspline", n_basis=4, omegas=(1.0, 1.0))
+    c = torch.zeros(env.coeff_shape)
+    psi0 = CP(torch.zeros(2**18), torch.zeros(2**18))
+    meas = Measurement.create_diagonal(np.zeros(4), device="cpu")
+    run = lambda mode: train_energy(  # noqa: E731
+        ham, env, meas, psi0, 1.0, TrainConfig(n_epoch=1, grad_mode=mode))
+    call = {
+        "mc_energy_grad": lambda: mc_energy_grad(
+            ham, env, meas, c, psi0, 1.0, None, 2, s=0.5),
+        "mc_energy_grad_batch": lambda: mc_energy_grad_batch(
+            ham, env, meas, c, psi0, 1.0, None, 2, 4,
+            s=torch.full((4,), 0.5)),
+        "fd_energy_grad": lambda: fd_energy_grad(ham, env, meas, c, psi0,
+                                                 1.0, None, 2),
+        "train_energy_mc": lambda: run("mc"),
+        "train_energy_fd": lambda: run("fd"),
+        "train_energy_seeds_mc": lambda: train_energy_seeds(
+            ham, env, meas, psi0, 1.0,
+            TrainConfig(n_epoch=1, grad_mode="mc"), n_seeds=2),
+    }[entry]
+    with pytest.raises(NotImplementedError, match="item 16"):
         call()
 
 
