@@ -17,7 +17,10 @@ at the first phase that does not hold:
    then the packed-phase pair (csrc/packed_phase.cu) through K3's entry
    point at 18 qubits and K5's single and batched entry points at 19-24,
    the cases listed in phase_packed_kernels (hops inside and across the
-   tile boundary, two sign planes, T = 1, B > 1);
+   tile boundary, two sign planes, T = 1, B > 1); then the same pair
+   through K6's entry points (the palindromic A/B schedule of hop drive
+   sets, phase_hop_kernels: the molecule drive set at 19, 20 and 24
+   qubits, a set whose B ops commute, T = 1, B = 4);
 3. the paths through the user's entry points, each with the kernels'
    launch counters set to 0 just before it and read just after:
    a. the 12-qubit ring MaxCut adjoint gradient (``energy_and_grad``)
@@ -39,6 +42,15 @@ at the first phase that does not hold:
       alone (K5 single); at 24 qubits ``energy_and_grad`` and 3 epochs of
       ``train_energy`` (K5), the value against the eager engine at 30
       steps and the gradient at 4;
+   f. the 20-qubit molecule drive set (X and Y on every qubit, hops and
+      ZZ on the pairs (i, i+1) and (i, i+2); bench.py's
+      ``molecule20q_hop_grad_step``): ``energy_and_grad`` (K6 only)
+      against the plain K6 chain through the same dispatcher and its
+      directional derivative against central differences; 20 epochs of
+      ``train_energy``; 4 seeds x 3 epochs of ``train_energy_seeds`` (K6
+      batched), each seed against itself run alone; and a 19-qubit set
+      of disjoint hops, where K6 and the eager engine coincide, against
+      the eager engine;
    each checked against the eager Strang engine on the card
    (``backend='product'``) or the adjoint gradient, with the limits
    named below;
@@ -49,7 +61,9 @@ at the first phase that does not hold:
    the MC gradient, the 64-seed MC epoch and the FD gradient, each
    beside the eager engine's time; K3 at 18 qubits and K5 at 20 and 24
    (and batched, B = 8 at 20), the 18/20/24-qubit grad steps and the
-   20-qubit 8-seed epoch, with the host's time to enqueue one chain;
+   20-qubit 8-seed epoch, with the host's time to enqueue one chain; K6
+   on the molecule drive set at 20 qubits (and batched, B = 4) and 24,
+   and the 20-qubit molecule grad step;
 5. a JSON line of per-kernel numbers, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -107,6 +121,17 @@ TOL_PK = {"fwd": 1e-7, "grad": 1e-4}
 FRONTIER_VALUE_ATOL = 5e-5
 FRONTIER_GRAD_REL = 1e-4
 SEED_ALONE_ATOL = 1e-5
+
+# K6 against its plain version (forward atol on the state, gradients
+# relative to their max-norm): an H100 run read 1.8e-8 forward at worst
+# (19q molecule set) and 2.4e-5 on d ud (19q disjoint hops), so the limits
+# sit ~5x and ~4x above, as TOL_PK. The 20q molecule step's value against
+# the plain chain through the same dispatcher, its directional derivative
+# against central differences through the path (relative to max(1, |fd|),
+# as tests/test_mega_hop.py), and each 20q seed against itself run alone.
+TOL_HOP = {"fwd": 1e-7, "grad": 1e-4}
+HOP_PLAIN_ATOL = 1e-5
+HOP_FD_REL = 5e-3
 
 
 def fail(msg: str):
@@ -541,6 +566,11 @@ COUNTERS = {  # kernel name -> (module, launch counter)
     "k5_backward": ("fused_chunked", "K5_BWD_LAUNCHES"),
     "k5_batched_forward": ("fused_chunked", "K5_BATCHED_FWD_LAUNCHES"),
     "k5_batched_backward": ("fused_chunked", "K5_BATCHED_BWD_LAUNCHES"),
+    # K6's likewise
+    "k6_forward": ("fused_mega_hop", "K6_FWD_LAUNCHES"),
+    "k6_backward": ("fused_mega_hop", "K6_BWD_LAUNCHES"),
+    "k6_batched_forward": ("fused_mega_hop", "K6_BATCHED_FWD_LAUNCHES"),
+    "k6_batched_backward": ("fused_mega_hop", "K6_BATCHED_BWD_LAUNCHES"),
 }
 
 
@@ -953,18 +983,23 @@ def phase_frontier(total):
     torch.cuda.empty_cache()
 
 
-def packed_bound(n, n_steps, kinds, n_diag, n_planes, backward, members=1):
-    """(bound_ms, bound_by) of one packed chain (K3 or K5) over
+def packed_bound(n, n_steps, kinds, n_diag, n_planes, backward, members=1,
+                 n_x=None):
+    """(bound_ms, bound_by) of one packed chain (K3, K5 or K6) over
     ``members`` states: each input read once and each output written once
     (the state, its cotangent, the rows, h0th and the sign planes), and
     the fp32 operations the function needs per amplitude and stage: the
     angle from its rows (2 per diagonal term, 2 for the drift and
     offset), sin and cos (one each), the phase (6; backward 12 for y and
     lambda, 4 for g = dL/d angle and S0, 2 per term for S_k), and per op
-    pair the rotation (12; backward 32, as ``chain_bound``)."""
+    pair the rotation (12; backward 32, as ``chain_bound``). ``kinds`` are
+    the kinds of one step's op rows (K6 applies most ops twice, at half
+    angle) and ``n_x`` the angle slots a step reads (default: one per
+    row)."""
     d, T = 2**n, n_steps
     pairs = _rot_pairs(kinds, d)
-    rows = members * ((T + 1) * (n_diag + 2) + T * len(kinds))
+    n_x = len(kinds) if n_x is None else n_x
+    rows = members * ((T + 1) * (n_diag + 2) + T * n_x)
     nbytes = 4 * d * (1 + n_planes) + 4 * rows
     angle = 2 * n_diag + 2 + 2
     if not backward:
@@ -1004,7 +1039,7 @@ def phase_frontier_times():
         members = b or 1
         psi = CP(prob.psi0.re.expand(members, -1).contiguous(),
                  prob.psi0.im.expand(members, -1).contiguous())
-        plan = tfp._plan_ops(qubits, kinds, n)
+        plan = tfp._packed_plan(qubits, kinds, n)
         udm = tfp.merge_ud_rows(ud)
         what = kernel.upper()
         fwd = lambda: tfp._packed_forward_cuda(  # noqa: E731
@@ -1064,6 +1099,438 @@ def phase_frontier_times():
         *args, TrainConfig(n_epoch=5, lr=2e-2), n_seeds=8), 1, warmup=1) / 5
     log(f"time: 20q 8-seed adjoint epoch {ms!r} ms (CUDA events over 5 "
         f"epochs in one call)")
+    return out
+
+
+# --------------------------------------------------------------------------
+# hop drive sets at 19-24 qubits: K6 (the palindromic A/B schedule)
+# --------------------------------------------------------------------------
+
+def molecule_pairs(n):
+    """The molecule drive set's pairs: (i, i+1) and (i, i+2)."""
+    return [(i, i + 1) for i in range(n - 1)] + \
+        [(i, i + 2) for i in range(n - 2)]
+
+
+def hop_ops(n, pairs, drives=None):
+    """(entries, kinds) of a hop drive set's rotation ops in qubit space,
+    in the router's order: the 1q drives ((qubit, 'x' | 'y') pairs;
+    default X and Y on every qubit), then one hop per pair."""
+    if drives is None:
+        drives = [(q, k) for q in range(n) for k in ("x", "y")]
+    return (tuple(q for q, _ in drives) + tuple(pairs),
+            tuple(k for _, k in drives) + ("hop",) * len(pairs))
+
+
+# tests/test_mega_hop.py's disjoint hops, with an X and a Y drive on two
+# other qubits and a ZZ row on those two beside the hops' own: every
+# rotation sits on its own qubits, so K6's schedule and the eager
+# engine's product coincide, and no gradient vanishes by symmetry (a ZZ
+# row on a hop's own pair commutes with everything here)
+DISJOINT = dict(pairs=[(0, 1), (4, 9), (12, 17)], drives=[(2, "x"), (7, "y")],
+                zz_pairs=[(0, 1), (4, 9), (12, 17), (2, 7)])
+
+
+def hop_kernel_inputs(n, n_steps, seed, members=None, pairs=None,
+                      drives=None, zz_pairs=None):
+    """K6's inputs for a hop drive set (see :func:`hop_ops`; the molecule
+    set's pairs unless ``pairs`` is given, a ZZ row per pair unless
+    ``zz_pairs`` is given), built on the card: the ops relabelled by the
+    planner, sign planes from the relabelled ZZ parity masks, random rows
+    (ud 0.2, theta_x 0.3 times N(0, 1)) and, from a generator on the
+    card, h0th (0.1 N(0, 1)) and a random state. Returns (psi0 [(B,) d],
+    ud [T, (B,) S], theta_x [T, (B,) n_x], h0th, signs, position entries,
+    kinds)."""
+    import torch
+    from diffquantum_tpu_torch.ops import fused_mega_hop as tmh
+    from diffquantum_tpu_torch.ops.cpx import CP
+    from diffquantum_tpu_torch.ops.fused_product import signs_planes_device
+    d = 2**n
+    pairs = molecule_pairs(n) if pairs is None else pairs
+    zz_pairs = pairs if zz_pairs is None else zz_pairs
+    entries, kinds = hop_ops(n, pairs, drives)
+    perm = tmh.plan_chunked_hop_layout(entries, kinds, n)
+    pos_of = tmh.invert_perm(perm)
+    pos = tuple((min(pos_of[e[0]], pos_of[e[1]]),
+                 max(pos_of[e[0]], pos_of[e[1]]))
+                if isinstance(e, tuple) else pos_of[e] for e in entries)
+    signs = signs_planes_device(
+        tuple(tmh.relabel_mask((1 << (n - 1 - i)) | (1 << (n - 1 - j)),
+                               perm, n) for i, j in zz_pairs), d, DEVICE)
+    rng = np.random.default_rng(seed)
+    lead = () if members is None else (members,)
+    f32 = dict(dtype=torch.float32, device=DEVICE)
+    ud = torch.tensor(0.2 * rng.standard_normal(
+        (n_steps,) + lead + (len(zz_pairs) + 1,)), **f32)
+    tx = torch.tensor(0.3 * rng.standard_normal(
+        (n_steps,) + lead + (len(pos),)), **f32)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    h0th = 0.1 * torch.randn(d, generator=gen, **f32)
+    psi0 = CP(*(torch.randn(lead + (d,), generator=gen, **f32)
+                / np.sqrt(2 * d) for _ in range(2)))
+    return psi0, ud, tx, h0th, signs, pos, kinds
+
+
+def card_weights(d, seed):
+    """An observable's diagonal w [d] ~ N(0, 1) drawn on the card."""
+    import torch
+    return torch.randn(d, generator=torch.Generator(
+        device=DEVICE).manual_seed(seed), device=DEVICE)
+
+
+def phase_hop_kernels():
+    """K6 forward and backward through its entry points and autograd
+    against the plain versions. Returns {"k6": (forward, backward) max abs
+    errors} of its main-path case (the 20q molecule set, T=30)."""
+    import torch
+    from diffquantum_tpu_torch.ops import fused_mega_hop as tmh
+    from diffquantum_tpu_torch.ops.cpx import CP
+
+    single = (tmh.chunked_evolve_mega_hop, tmh.chunked_evolve_mega_hop_plain)
+    batched = (tmh.chunked_evolve_mega_hop_batched,
+               tmh.chunked_evolve_mega_hop_batched_plain)
+    # (label, functions, qubits, steps, members B or None, drive set
+    # (hop_kernel_inputs' keywords; the molecule set if empty), main-path
+    # case)
+    cases = [("19q molecule set (c=2), T=30", single, 19, 30, None, {},
+              False),
+             ("20q molecule set (c=3), T=30", single, 20, 30, None, {}, True),
+             ("19q disjoint hops, X and Y on two other qubits (B ops "
+              "commute), T=30", single, 19, 30, None, DISJOINT, False),
+             ("20q molecule set, T=1", single, 20, 1, None, {}, False),
+             ("batched 20q molecule set, T=30, B=4 per-member rows",
+              batched, 20, 30, 4, {}, False),
+             ("24q molecule set (c=7), T=4", single, 24, 4, None, {}, False)]
+    errs = {}
+    for label, (entry, plain), n, n_steps, b, drive_set, main in cases:
+        seed = n * 1000 + n_steps + (b or 0)
+        psi0, ud, tx, h0th, signs, pos, kinds = hop_kernel_inputs(
+            n, n_steps, seed, b, **drive_set)
+        n_rows = len(tmh._hop_plan(pos, kinds, n))
+        args = (h0th, signs, pos, n, kinds)
+        leaves = [t.clone().requires_grad_(True)
+                  for t in (psi0.re, psi0.im, ud, tx)]
+        before = read_counts()
+        t0 = time.perf_counter()
+        out = entry(CP(leaves[0], leaves[1]), leaves[2], leaves[3], *args)
+        torch.cuda.synchronize()
+        t_k = time.perf_counter() - t0
+        ref = plain(psi0, ud, tx, *args)
+        w = card_weights(ref.re.shape[-1], seed)
+        lam = CP(2.0 * w * ref.re, 2.0 * w * ref.im)  # d<w>/dpsi
+        got = torch.autograd.grad((out.re, out.im), leaves, (lam.re, lam.im))
+        after = read_counts()
+        ran = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        want = {"k6_forward": 1, "k6_backward": 1}
+        if b is not None:
+            want.update(k6_batched_forward=1, k6_batched_backward=1)
+        if ran != want:
+            fail(f"K6 {label}: the entry point launched {ran}, expected "
+                 f"{want}")
+        gp, gud, gtx = tmh._adjoint_mega_hop_plain(ref, lam, ud, tx, *args)
+        torch.cuda.synchronize()
+        fwd_err, bwd_abs, rels = _check_case(
+            f"K6 {label}", "K6", TOL_HOP, (out.re.detach(), out.im.detach()),
+            ref, got, (gp.re, gp.im, gud, gtx),
+            "dpsi_re, dpsi_im, dud, dtheta_x")
+        log(f"kernel check K6 [{label}]: {len(pos)} angle slots, {n_rows} "
+            f"rows per step, {signs.shape[0]} sign plane(s), forward max "
+            f"abs err {fwd_err!r} (atol {TOL_HOP['fwd']}); backward "
+            f"relative errors {rels!r} (bound {TOL_HOP['grad']}); first "
+            f"launch + sync {t_k * 1e3:.3f} ms")
+        if main:
+            errs["k6"] = (fwd_err, bwd_abs)
+        del out, ref, got, leaves, gp, gud, gtx, lam, psi0, h0th, signs, w
+        torch.cuda.empty_cache()
+    return errs
+
+
+_HOP_PROBLEMS = {}
+
+
+def hop_problem(n, pairs=None, drives=None, zz_pairs=None,
+                coeff_scale=1e-3, seed=0, random_state=False):
+    """A hop drive set as bench.py builds ``molecule20q_hop_grad_step``:
+    1q drives (``drives``, (qubit, 'x' | 'y') pairs; default X and Y on
+    every qubit), a hop on each pair (the molecule set's unless ``pairs``
+    is given) and a ZZ row on each of ``zz_pairs`` (default: the same
+    pairs), omega = pi for every control, bspline envelopes with 4 basis
+    functions, T = 2, zero H0, psi0 uniform (or, with ``random_state``, a
+    random state), the observable w ~ N(0, 1) and coefficients
+    coeff_scale x N(0, 1), all from ``seed``. Built once per run; logs
+    the host's build time."""
+    import resource
+    import types
+
+    import torch
+    from diffquantum_tpu_torch.dynamics import hamiltonian as tham
+    from diffquantum_tpu_torch.dynamics.product import (_packed_tables,
+                                                        select_engine)
+    from diffquantum_tpu_torch.measure import Measurement
+    from diffquantum_tpu_torch.ops import linalg
+    from diffquantum_tpu_torch.ops.cpx import CP
+    from diffquantum_tpu_torch.pulses.envelope import SimpleEnvelope
+    key = (n, tuple(pairs or ()), tuple(drives or ()),
+           tuple(zz_pairs or ()), coeff_scale, seed, random_state)
+    if key in _HOP_PROBLEMS:
+        return _HOP_PROBLEMS[key]
+    d = 2**n
+    pairs = molecule_pairs(n) if pairs is None else pairs
+    zz_pairs = pairs if zz_pairs is None else zz_pairs
+    if drives is None:
+        drives = [(q, k) for q in range(n) for k in ("x", "y")]
+    t0 = time.perf_counter()
+    st = [tham.TermStructure(kind="1q", qubit=q,
+                             local=linalg.X if k == "x" else linalg.Y)
+          for q, k in drives]
+    for i, j in pairs:
+        st.append(tham.TermStructure(kind="hop", qubit=i, qubit2=j))
+        if (i, j) in zz_pairs:
+            st.append(tham.TermStructure(kind="diag",
+                                         diag=linalg.zz_diagonal(n, i, j)))
+    st += [tham.TermStructure(kind="diag", diag=linalg.zz_diagonal(n, i, j))
+           for i, j in zz_pairs if (i, j) not in pairs]
+    ham = tham.ControlledHamiltonian.create_structured(
+        d, tuple(st), h0_structure=tham.TermStructure(kind="diag",
+                                                      diag=np.zeros(d)))
+    env = SimpleEnvelope(basis="bspline", n_basis=4,
+                         omegas=(np.pi,) * len(st))
+    rng = np.random.default_rng(seed)
+    meas = Measurement.create_diagonal(rng.standard_normal(d), device=DEVICE)
+    coeff = torch.tensor(coeff_scale * rng.standard_normal(env.coeff_shape),
+                         dtype=torch.float32, device=DEVICE)
+    amp = linalg.uniform_superposition(n)
+    if random_state:
+        amp = rng.standard_normal(d) + 1j * rng.standard_normal(d)
+        amp /= np.linalg.norm(amp)
+    psi0 = CP(torch.tensor(amp.real, dtype=torch.float32, device=DEVICE),
+              torch.tensor(amp.imag, dtype=torch.float32, device=DEVICE))
+    t1 = time.perf_counter()
+    engine = select_engine(ham)
+    signs = _packed_tables(ham, DEVICE)[0]
+    t2 = time.perf_counter()
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    log(f"host: {n}q hop drive set ({len(st)} controls, {len(pairs)} hops): "
+        f"build {t1 - t0:.3f} s; select_engine, relabelling and sign planes "
+        f"{tuple(signs.shape)} {t2 - t1:.3f} s -> {engine!r}; peak host RSS "
+        f"so far {rss:.2f} GiB")
+    prob = types.SimpleNamespace(ham=ham, envelope=env, measurement=meas,
+                                 psi0=psi0, T=2.0, coeff=coeff, n_qubits=n)
+    _HOP_PROBLEMS[key] = prob
+    return prob
+
+
+def phase_hop_paths(total):
+    """The 20q molecule drive set through the entry points (K6 only; the
+    seeds on K6 batched), and the 19q disjoint-hop set against the eager
+    engine."""
+    import torch
+    from diffquantum_tpu_torch.dynamics.product import (_hop_layout,
+                                                        _mega_hop_dispatch,
+                                                        packed_chain_inputs,
+                                                        select_engine)
+    from diffquantum_tpu_torch.dynamics.propagator import evolve
+    from diffquantum_tpu_torch.gradients.adjoint import energy_and_grad
+    from diffquantum_tpu_torch.measure import diag_expectation
+    from diffquantum_tpu_torch.parallel import train_energy_seeds
+    from diffquantum_tpu_torch.train.config import TrainConfig
+    from diffquantum_tpu_torch.train.energy import train_energy
+
+    n_steps = 30
+    prob = hop_problem(20)
+    if select_engine(prob.ham) != "mega_hop":
+        fail(f"20q molecule drive set routes to "
+             f"{select_engine(prob.ham)!r}, expected 'mega_hop'")
+    args = (prob.ham, prob.envelope, prob.measurement)
+    zero_counts()
+    val, grad = energy_and_grad(*args, prob.coeff, prob.psi0, prob.T,
+                                n_steps)
+    counts = read_counts()
+    expect_counts("energy_and_grad, 20q molecule drive set", counts,
+                  {"k6_forward": 1, "k6_backward": 1})
+    _add(total, counts)
+    with torch.no_grad():  # the plain K6 chain through the same dispatcher
+        ud, tx, h0th, signs, pos, kinds = packed_chain_inputs(
+            prob.ham, prob.envelope, prob.coeff, 0.0, prob.T, prob.T,
+            n_steps)
+        psi_p = _mega_hop_dispatch(prob.n_qubits, prob.psi0, ud, tx, h0th,
+                                   signs, pos, kinds,
+                                   _hop_layout(prob.ham)[0], False,
+                                   plain=True)
+        val_p = float(diag_expectation(prob.measurement.diag, psi_p))
+    dv = abs(float(val) - val_p)
+
+    def energy(c):
+        with torch.no_grad():
+            psi = evolve(prob.ham, prob.envelope, c, prob.psi0, 0.0, prob.T,
+                         horizon=prob.T, n_steps=n_steps)
+            return float(diag_expectation(prob.measurement.diag, psi))
+
+    direction = torch.tensor(np.random.default_rng(23).standard_normal(
+        prob.envelope.coeff_shape), dtype=torch.float32, device=DEVICE)
+    eps = 1e-3
+    zero_counts()
+    fd = (energy(prob.coeff + eps * direction)
+          - energy(prob.coeff - eps * direction)) / (2 * eps)
+    counts = read_counts()
+    expect_counts("central differences, 20q molecule drive set", counts,
+                  {"k6_forward": 2})
+    _add(total, counts)
+    an = float((grad * direction).sum())
+    log(f"hop: 20q molecule grad step value {float(val)!r} (plain K6 chain "
+        f"{val_p!r}, diff {dv!r}, atol {HOP_PLAIN_ATOL}); directional "
+        f"derivative {an!r}, central difference (eps {eps}) {fd!r}, diff "
+        f"{abs(fd - an)!r} (bound {HOP_FD_REL} x max(1, |fd|)); "
+        f"|grad| max {float(grad.abs().max())!r}")
+    if not (torch.isfinite(grad).all() and dv <= HOP_PLAIN_ATOL
+            and abs(fd - an) <= HOP_FD_REL * max(1.0, abs(fd))):
+        fail("20q molecule grad step disagrees with the plain K6 chain or "
+             "with central differences")
+
+    # the disjoint set from a random state (from the uniform state the
+    # hops only phase their {01, 10} parts, and the loss is flat)
+    p19 = hop_problem(19, **DISJOINT, coeff_scale=0.4, seed=20,
+                      random_state=True)
+    if select_engine(p19.ham) != "mega_hop":
+        fail(f"19q disjoint-hop set routes to {select_engine(p19.ham)!r}")
+    zero_counts()
+    v19, g19 = energy_and_grad(p19.ham, p19.envelope, p19.measurement,
+                               p19.coeff, p19.psi0, p19.T, n_steps)
+    counts = read_counts()
+    expect_counts("energy_and_grad, 19q disjoint hops", counts,
+                  {"k6_forward": 1, "k6_backward": 1})
+    _add(total, counts)
+    _eager_check("hop: 19q disjoint-hop grad step", p19, p19.coeff, n_steps,
+                 v19, g19)
+
+    epochs = 20
+    zero_counts()
+    res = train_energy(*args, prob.psi0, prob.T,
+                       TrainConfig(n_epoch=epochs, lr=2e-2))
+    counts = read_counts()
+    expect_counts(f"train_energy adjoint, 20q molecule drive set, {epochs} "
+                  f"epochs", counts, {"k6_forward": epochs + 1,
+                                      "k6_backward": epochs})
+    _add(total, counts)
+    losses = res.losses_raw
+    psi = res.final_state
+    norm = float((psi.re.double() ** 2 + psi.im.double() ** 2).sum())
+    log(f"hop: 20q train_energy {epochs} epochs, loss {losses[0]!r} -> "
+        f"{losses[-1]!r}, final state norm {norm!r}, wall {res.wall_s:.3f} s")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and abs(norm - 1.0) < 1e-4):
+        fail("20q molecule training: loss did not fall or the state is not "
+             "normalized")
+
+    b = 4
+    init = torch.tensor(1e-3 * np.random.default_rng(8).standard_normal(
+        (b,) + prob.envelope.coeff_shape), dtype=torch.float32,
+        device=DEVICE)
+    cfg = TrainConfig(n_epoch=3, lr=2e-2)
+    zero_counts()
+    res = train_energy_seeds(*args, prob.psi0, prob.T, cfg, n_seeds=b,
+                             init_coeffs=init)
+    counts = read_counts()
+    expect_counts(f"train_energy_seeds adjoint, 20q molecule drive set, {b} "
+                  f"seeds, 3 epochs", counts,
+                  {"k6_forward": 3, "k6_backward": 3,
+                   "k6_batched_forward": 3, "k6_batched_backward": 3})
+    _add(total, counts)
+    zero_counts()
+    alone = [train_energy(*args, prob.psi0, prob.T, cfg,
+                          init_coeff=init[i]).losses_raw for i in range(b)]
+    counts = read_counts()
+    expect_counts(f"train_energy adjoint, 20q molecule drive set, each of "
+                  f"the {b} seeds alone", counts,
+                  {"k6_forward": 4 * b, "k6_backward": 3 * b})
+    _add(total, counts)
+    diff = float(np.abs(res.losses - np.asarray(alone).T).max())
+    log(f"hop: 20q {b} seeds x 3 epochs, mean loss "
+        f"{float(res.losses[0].mean())!r} -> "
+        f"{float(res.losses[-1].mean())!r}; vs each seed alone on single "
+        f"K6: max abs diff {diff!r} (atol {SEED_ALONE_ATOL})")
+    if not (res.losses.shape == (3, b) and np.all(np.isfinite(res.losses))
+            and diff <= SEED_ALONE_ATOL):
+        fail("20q molecule seeds: losses not finite or off the seeds run "
+             "alone")
+    torch.cuda.empty_cache()
+
+
+def phase_hop_times():
+    """K6 on the molecule drive set at 20q (single and batched, B=4) and
+    24q, T=30, beside the plain versions (at the checked shapes: 24q at
+    T=4) and the bounds; the host's time to enqueue one chain; the 20q
+    molecule grad step. Returns {kernel: (ms, plain_ms, bound_ms,
+    bound_by)} at the main path's shape (20q, T=30, B=1)."""
+    import torch
+    from diffquantum_tpu_torch.gradients.adjoint import energy_and_grad
+    from diffquantum_tpu_torch.ops import fused_mega_hop as tmh
+    from diffquantum_tpu_torch.ops import fused_product as tfp
+    from diffquantum_tpu_torch.ops.cpx import CP
+
+    out = {}
+    for n, b, iters, plain_steps in ((20, None, 10, 30), (20, 4, 3, 30),
+                                     (24, None, 2, 4)):
+        psi0, ud, tx, h0th, signs, pos, kinds = hop_kernel_inputs(
+            n, 30, n, b)
+        if b is None:
+            ud, tx = ud[:, None].contiguous(), tx[:, None].contiguous()
+            psi0 = CP(psi0.re[None], psi0.im[None])
+        members = b or 1
+        plan = tmh._hop_plan(pos, kinds, n)
+        udm = tfp.merge_ud_rows(ud)
+        fwd = lambda: tfp._packed_forward_cuda(  # noqa: E731
+            psi0.re, psi0.im, udm, tx, h0th, signs, plan, n, "K6")
+        o_re, o_im = fwd()
+        w = card_weights(o_re.shape[-1], n)
+        lam = CP(2.0 * w * o_re, 2.0 * w * o_im)
+        bwd = lambda: tfp._packed_backward_cuda(  # noqa: E731
+            o_re, o_im, lam.re, lam.im, udm, tx, h0th, signs, plan, n, "K6")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()  # one chain: more would fill the queue
+        fwd()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        n_pass = len(tfp._pass_layout(tuple(map(tuple, plan.tolist())), n,
+                                      2, ud.shape[2] - 1, len(pos))[2])
+        shape = (f"{n}q molecule set, T=30, {len(pos)} angle slots, "
+                 f"{len(plan)} rows and {n_pass} forward passes per step, "
+                 f"{ud.shape[2] - 1} diagonal terms, B={members}")
+        log(f"time: k6_forward host enqueue {host_ms!r} ms per chain (one "
+            f"ctypes call; {shape})")
+        pu, pt = ud[:plain_steps].contiguous(), tx[:plain_steps].contiguous()
+        pargs = (h0th, signs, plan, len(pos), n)
+        p_out = tfp.packed_chain_plain(psi0, pu, pt, *pargs)
+        p_lam = CP(2.0 * w * p_out.re, 2.0 * w * p_out.im)
+        plain = {"forward": lambda: tfp.packed_chain_plain(psi0, pu, pt,
+                                                           *pargs),
+                 "backward": lambda: tfp.packed_adjoint_plain(
+                     p_out, p_lam, pu, pt, *pargs)}
+        row_kinds = [kinds[int(r[0])] for r in plan]
+        for part, kfn in (("forward", fwd), ("backward", bwd)):
+            ms = cuda_ms(kfn, iters, warmup=1)
+            plain_ms = cuda_ms(plain[part], 1, warmup=0)
+            bound = packed_bound(n, 30, row_kinds, ud.shape[2] - 1,
+                                 signs.shape[0], part == "backward", members,
+                                 n_x=len(pos))
+            log(f"time: k6_{part} {ms!r} ms/chain, plain version "
+                f"{plain_ms!r} ms at T={plain_steps}, bound {bound[0]!r} ms "
+                f"({bound[1]}) ({shape})")
+            if (n, b) == (20, None):
+                out[f"k6_{part}"] = (ms, plain_ms) + bound
+        del fwd, bwd, o_re, o_im, lam, plain, p_out, p_lam, psi0, h0th, signs
+        torch.cuda.empty_cache()
+
+    prob = hop_problem(20)
+
+    def step():
+        return energy_and_grad(prob.ham, prob.envelope, prob.measurement,
+                               prob.coeff, prob.psi0, prob.T, 30)
+    ms = cuda_ms(step, 5, warmup=1)
+    log(f"time: 20q molecule drive set 30-step adjoint grad step {ms!r} ms "
+        f"(CUDA events over 5 chained calls; the eager engine is not timed: "
+        f"its autograd tape would hold 30 steps x 154 rotations of 2^20 "
+        f"amplitudes)")
     return out
 
 
@@ -1235,24 +1702,28 @@ def main():
     phase_build()
     errs = phase_kernels()
     errs.update(phase_packed_kernels())
+    errs.update(phase_hop_kernels())
     launches = {k: 0 for k in COUNTERS}
     phase_main_path(launches)
     phase_seeds(launches)
     phase_mc(launches)
     phase_fd(launches)
     phase_frontier(launches)
+    phase_hop_paths(launches)
     log(f"launches over all paths: {launches}")
     for name, n in launches.items():
         if n <= 0:
             fail(f"{name} was launched no time by the paths")
     times = phase_times()
     times.update(phase_frontier_times())
+    times.update(phase_hop_times())
 
     # kernel -> (source, TPU kernel it replaces)
     k12 = "diffquantum_tpu_torch/csrc/fused_product.cu"
     pk = "diffquantum_tpu_torch/csrc/packed_phase.cu"
-    fp, fc = "diffquantum_tpu/ops/fused_product.py", \
-        "diffquantum_tpu/ops/fused_chunked.py"
+    fp, fc, fh = "diffquantum_tpu/ops/fused_product.py", \
+        "diffquantum_tpu/ops/fused_chunked.py", \
+        "diffquantum_tpu/ops/fused_mega_hop.py"
     replaces = {"k1_forward": (k12, f"{fp}:307"),
                 "k1_backward": (k12, f"{fp}:376"),
                 "k2_forward": (k12, f"{fp}:672"),
@@ -1260,7 +1731,9 @@ def main():
                 "k3_forward": (pk, f"{fp}:1285"),
                 "k3_backward": (pk, f"{fp}:1364"),
                 "k5_forward": (pk, f"{fc}:695"),
-                "k5_backward": (pk, f"{fc}:766")}
+                "k5_backward": (pk, f"{fc}:766"),
+                "k6_forward": (pk, f"{fh}:612"),
+                "k6_backward": (pk, f"{fh}:685")}
     kernels = []
     for name, (source, line) in replaces.items():
         ms, plain_ms, bound_ms, bound_by = times[name]

@@ -1,4 +1,4 @@
-// K3 and K5 on Hopper (sm_90a): the packed-phase Strang chain over a
+// K3, K5 and K6 on Hopper (sm_90a): the packed-phase Strang chain over a
 // state in global memory, and its exact O(1)-memory adjoint.
 //
 // Replaces the TPU kernels
@@ -8,23 +8,34 @@
 //   K5 _make_mega_fwd            (diffquantum_tpu/ops/fused_chunked.py:695,
 //                                 pallas_call :932 single, :1117 batched)
 //   K5 _make_mega_bwd            (fused_chunked.py:766, :980, :1166)
-// behind fused_product_evolve_packed, chunked_evolve_mega and
-// chunked_evolve_mega_batched. K3 and K5 compute one function; on the TPU
-// they differ only in how the state meets VMEM. The Python wrappers and
-// the plain PyTorch versions are diffquantum_tpu_torch/ops/fused_product.py
-// (_packed_forward_cuda, _packed_backward_cuda, _packed_core) and
-// ops/fused_chunked.py.
+//   K6 _make_mega_hop_fwd        (diffquantum_tpu/ops/fused_mega_hop.py:612,
+//                                 pallas_call :921 single, :1052 batched)
+//   K6 _make_mega_hop_bwd        (fused_mega_hop.py:685, :964, :1096)
+// behind fused_product_evolve_packed, chunked_evolve_mega(_batched) and
+// chunked_evolve_mega_hop(_batched). K3 and K5 compute one function; on
+// the TPU they differ only in how the state meets VMEM. K6 is another
+// integrator (a palindromic A/B schedule: each step's ops at half angle
+// forward, then reversed), which these kernels run as op rows that carry
+// a scale: a row rotates by scale * theta_x[slot], a slot may have several
+// rows, and its gradient is the sum of its rows' scaled partials. The
+// Python wrappers and the plain PyTorch versions are
+// diffquantum_tpu_torch/ops/fused_product.py (_packed_forward_cuda,
+// _packed_backward_cuda, _packed_core), ops/fused_chunked.py and
+// ops/fused_mega_hop.py.
 //
 // What it computes. States [B, d], d = 2^n, re/im planes. T+1 stages; stage
 // s multiplies amplitude j by e^{-i theta_s(j)},
 //   theta_s(j) = m_s h0th[j] + off_s + sum_k a_sk (1 - 2 bit_k(j)),
 // from the merged row [a_s0 .. a_s,n_diag-1, off_s, m_s] of member b and
 // the sign bit-planes (bit k%30 of plane k//30), then, for s < T, applies
-// step s's ordered op plan: X (c x - i s G x), Y (c x + s K x) or hop (an
-// X-type rotation on the {01,10} pairs of two bits). The backward runs the
+// step s's ordered op rows: X (c x - i s G x), Y (c x + s K x) or hop (an
+// X-type rotation on the {01,10} pairs of two bits), each by the angle
+// scale * theta_x[s, b, slot] (scale 1 for K3/K5, 1/2 or 1 for K6). The
+// backward runs the
 // stages in reverse from (psi_T, lambda_T), rebuilding each earlier state
 // by the inverse op (G^2 = I, K^2 = -I), and reduces the cotangents to
-// d theta_x [T, B, n_x] and the merged rows' [T+1, B, n_diag+1]:
+// d theta_x [T, B, n_x] (per slot, the sum of its rows' partials times
+// their scales) and the merged rows' [T+1, B, n_diag+1]:
 // S0 - 2 S_k for slot k and S0 for the offset slot, where
 // S0 = sum_j g_j, S_k = sum_j g_j bit_k(j), g = lam_re y_im - lam_im y_re.
 //
@@ -58,8 +69,12 @@
 // backward mirrors each pass in reverse, carrying lambda beside y. Each
 // block writes its partial sums (one per op, and S_k and S0 for the tile
 // pass) to a [T+1, B, ...] buffer; a last launch sums them in a fixed
-// order (no atomics), so the gradients are deterministic. Offsets are
-// size_t: B*d passes 2^31 at 24 qubits from B = 128 up.
+// order (no atomics), so the gradients are deterministic: per slot, its
+// locations in plan order. Offsets are size_t: B*d passes 2^31 at 24
+// qubits from B = 128 up. K6's hops cross the tile/strided split more
+// often than K5's X drives, so its steps take more passes (15 per stage
+// for the 20-qubit molecule drive set, 32 at 24 qubits), each bound like
+// K5's.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -67,6 +82,7 @@
 namespace {
 
 constexpr int kMaxOps = 128;
+constexpr int kOpCols = 5;  // slot, kind, mask a, mask b, scale in halves
 constexpr int kMaxDiag = 120;
 constexpr int kPlaneBits = 30;
 constexpr int kMaxThreads = 512;
@@ -91,15 +107,21 @@ struct Chain {
   int n, k, T, B, n_diag, P, n_x;
 };
 
-// a pass's op table and the (cos, sin) of its angles for this member
+// a pass's op table, its rows' scales and the (cos, sin) of their angles
+// for this member
 struct OpTable {
   int slot[kMaxOps];
   int kind[kMaxOps];
   unsigned ma[kMaxOps];
   unsigned mb[kMaxOps];
+  float scale[kMaxOps];
   float c[kMaxOps];
   float s[kMaxOps];
 };
+
+__device__ __forceinline__ float row_scale(const int* op) {
+  return 0.5f * (float)op[4];
+}
 
 // a stage's merged row, and off + sum_k a_k
 struct StageRow {
@@ -151,11 +173,13 @@ __device__ void load_pass(OpTable& tab, StageRow& row, const Chain& ch,
   const unsigned b = blockIdx.y;
   const float* tx = ch.tx + ((size_t)stage * ch.B + b) * ch.n_x;
   for (int o = threadIdx.x; o < n_ops; o += blockDim.x) {
-    tab.slot[o] = ops[4 * o];
-    tab.kind[o] = ops[4 * o + 1];
-    tab.ma[o] = (unsigned)ops[4 * o + 2];
-    tab.mb[o] = (unsigned)ops[4 * o + 3];
-    sincosf(__ldg(tx + tab.slot[o]), &tab.s[o], &tab.c[o]);
+    const int* op = ops + kOpCols * o;
+    tab.slot[o] = op[0];
+    tab.kind[o] = op[1];
+    tab.ma[o] = (unsigned)op[2];
+    tab.mb[o] = (unsigned)op[3];
+    tab.scale[o] = row_scale(op);
+    sincosf(tab.scale[o] * __ldg(tx + tab.slot[o]), &tab.s[o], &tab.c[o]);
   }
   if (phase) {
     const float* u = ch.udm + ((size_t)stage * ch.B + b) * (ch.n_diag + 2);
@@ -263,7 +287,9 @@ cross_forward(float* re, float* im, Chain ch, const int* __restrict__ op,
   const int kind = op[1];
   const unsigned ma = (unsigned)op[2], mb = (unsigned)op[3];
   float s, c;
-  sincosf(__ldg(ch.tx + ((size_t)stage * ch.B + blockIdx.y) * ch.n_x + op[0]),
+  sincosf(row_scale(op) *
+              __ldg(ch.tx + ((size_t)stage * ch.B + blockIdx.y) * ch.n_x +
+                    op[0]),
           &s, &c);
   const unsigned n_pairs = (unsigned)(kind == kHop ? d >> 2 : d >> 1);
   for (unsigned p = blockIdx.x * blockDim.x + threadIdx.x; p < n_pairs;
@@ -332,7 +358,8 @@ __device__ __forceinline__ float undo_pair(int kind, float c, float s,
 // last first, then (tile pass) take the phase's partial sums and undo the
 // phase, scatter back. Block partials go to
 // part[((stage*B + b)*stride + part_off + bi*width + col]: one column per
-// op, then S_0..S_{n_diag-1} and S0 from column diag_col.
+// op (d angle times the row's scale), then S_0..S_{n_diag-1} and S0 from
+// column diag_col.
 __global__ void __launch_bounds__(kMaxThreads)
 pass_backward(float* y_re, float* y_im, float* l_re, float* l_im, Chain ch,
               const int* __restrict__ ops, int n_ops, int stage, int lc,
@@ -372,7 +399,7 @@ pass_backward(float* y_re, float* y_im, float* l_re, float* l_im, Chain ch,
       g += undo_pair(kind, c, s, yr, yi, lr, li, i, j);
     }
     g = warp_sum(g);
-    if (lane == 0) wpart[o][warp] = g;
+    if (lane == 0) wpart[o][warp] = g * tab.scale[o];
     __syncthreads();
   }
   if (phase) {
@@ -432,7 +459,7 @@ pass_backward(float* y_re, float* y_im, float* l_re, float* l_im, Chain ch,
 }
 
 // A cross pass in reverse: one op from global memory, one partial per
-// block at part[... + part_off + bi].
+// block (times the row's scale) at part[... + part_off + bi].
 __global__ void __launch_bounds__(kCrossThreads)
 cross_backward(float* y_re, float* y_im, float* l_re, float* l_im, Chain ch,
                const int* __restrict__ op, int stage, float* part,
@@ -443,8 +470,11 @@ cross_backward(float* y_re, float* y_im, float* l_re, float* l_im, Chain ch,
   y_re += mo; y_im += mo; l_re += mo; l_im += mo;
   const int kind = op[1];
   const unsigned ma = (unsigned)op[2], mb = (unsigned)op[3];
+  const float scale = row_scale(op);
   float s, c;
-  sincosf(__ldg(ch.tx + ((size_t)stage * ch.B + blockIdx.y) * ch.n_x + op[0]),
+  sincosf(scale *
+              __ldg(ch.tx + ((size_t)stage * ch.B + blockIdx.y) * ch.n_x +
+                    op[0]),
           &s, &c);
   const unsigned n_pairs = (unsigned)(kind == kHop ? d >> 2 : d >> 1);
   float g = 0.f;
@@ -461,13 +491,14 @@ cross_backward(float* y_re, float* y_im, float* l_re, float* l_im, Chain ch,
     float v = 0.f;
     for (int w = 0; w < kCrossThreads / 32; ++w) v += wpart[w];
     part[((size_t)stage * ch.B + blockIdx.y) * stride + part_off +
-         blockIdx.x] = v;
+         blockIdx.x] = v * scale;
   }
 }
 
-// One warp per output: sums a column of block partials in a fixed order.
-// Outputs: d theta_x [T, B, n_x] (slot j's pass and column from slots
-// [n_x, 4] = (offset, blocks, width, column)), then the merged rows'
+// One warp per output: sums columns of block partials in a fixed order.
+// Outputs: d theta_x [T, B, n_x], slot j summing the columns of its
+// locations slots[n_x + 1 + 4 l ..] = (offset, blocks, width, column) for
+// l in [slots[j], slots[j + 1]), in that order; then the merged rows'
 // [T+1, B, n_diag+1] from the tile pass (offset 0, tile_blocks,
 // tile_width, diag_col).
 __global__ void reduce_partials(const float* __restrict__ part, int stride,
@@ -482,10 +513,13 @@ __global__ void reduce_partials(const float* __restrict__ part, int stride,
   if (w < n_tx) {
     const size_t sb = w / n_x;  // stage * B + member
     const int j = (int)(w % n_x);
-    const float* col = part + sb * stride + slots[4 * j] + slots[4 * j + 3];
-    const int blocks = slots[4 * j + 1], width = slots[4 * j + 2];
+    const int* loc = slots + n_x + 1;
     float v = 0.f;
-    for (int i = lane; i < blocks; i += 32) v += col[(size_t)i * width];
+    for (int l = slots[j]; l < slots[j + 1]; ++l) {
+      const float* col = part + sb * stride + loc[4 * l] + loc[4 * l + 3];
+      const int blocks = loc[4 * l + 1], width = loc[4 * l + 2];
+      for (int i = lane; i < blocks; i += 32) v += col[(size_t)i * width];
+    }
     v = warp_sum(v);
     if (lane == 0) gtx[w] = v;
   } else if (w < n_tx + n_ud) {
@@ -551,7 +585,8 @@ extern "C" {
 // Forward chain over B states [B, d], updated in place in (re, im), which
 // hold psi_0 on entry and psi_T on return. passes: host table [n_pass, 6]
 // (kind, first op row, op count, blocks, partial offset, partial width);
-// ops: device op rows [n_ops, 4] (slot, kind, local mask a, local mask b).
+// ops: device op rows [n_ops, 5] (slot, kind, local mask a, local mask b,
+// scale in halves); tx: [T, B, n_x], n_x angle slots.
 int dq_pk_forward(float* re, float* im, const float* udm, const float* tx,
                   const float* h0th, const int* planes, const int* ops,
                   const int* passes, int n_pass, int n, int k, int lc, int T,
@@ -569,7 +604,7 @@ int dq_pk_forward(float* re, float* im, const float* udm, const float* tx,
     for (int i = 0; i < n_pass; ++i) {
       if (s == T && i > 0) break;  // the last stage is its phase alone
       const Pass& p = ps[i];
-      const int* op = ops + 4 * p.op_begin;
+      const int* op = ops + kOpCols * p.op_begin;
       if (p.kind == kCross) {
         cross_forward<<<dim3(p.blocks, B), kCrossThreads, 0, st>>>(
             re, im, ch, op, s);
@@ -589,9 +624,10 @@ int dq_pk_forward(float* re, float* im, const float* udm, const float* tx,
 
 // Adjoint chain: (y, l) hold (psi_T, lambda_T) on entry and (psi_0,
 // dpsi_0) on return. part: scratch [T+1, B, stride] floats of block
-// partials; slots: device [n_x, 4] (offset, blocks, width, column) of
-// each angle slot. Writes gud [T+1, B, n_diag+1] (merged-row cotangents)
-// and gtx [T, B, n_x].
+// partials; slots: device int table, n_x + 1 offsets into the locations
+// that follow, each (offset, blocks, width, column) of one row of the
+// slot (see reduce_partials). Writes gud [T+1, B, n_diag+1] (merged-row
+// cotangents) and gtx [T, B, n_x].
 int dq_pk_backward(float* y_re, float* y_im, float* l_re, float* l_im,
                    const float* udm, const float* tx, const float* h0th,
                    const int* planes, const int* ops, const int* passes,
@@ -613,7 +649,7 @@ int dq_pk_backward(float* y_re, float* y_im, float* l_re, float* l_im,
     for (int i = n_pass - 1; i >= 0; --i) {
       if (s == T && i > 0) continue;  // the last stage is its phase alone
       const Pass& p = ps[i];
-      const int* op = ops + 4 * p.op_begin;
+      const int* op = ops + kOpCols * p.op_begin;
       if (p.kind == kCross) {
         cross_backward<<<dim3(p.blocks, B), kCrossThreads, 0, st>>>(
             y_re, y_im, l_re, l_im, ch, op, s, part, stride, p.part_off);

@@ -15,9 +15,13 @@ Two engines:
   the exact adjoint kernels behind them, routed by :func:`select_engine`:
   'streamed' (10-17 qubits, phase tables [T, d]) runs K1 for one state
   and K2 for a batch [B, d] (:mod:`..ops.fused_product`); 'packed' (18)
-  runs K3 and 'mega' (19-24, no hops) K5, single or batched
-  (:mod:`..ops.fused_chunked`), whose kernels compute the phases from
+  runs K3, 'mega' (19-24, no hops) K5 and 'mega_hop' (19-24 with hops)
+  K6, single or batched (:mod:`..ops.fused_chunked`,
+  :mod:`..ops.fused_mega_hop`), whose kernels compute the phases from
   sign bit-planes, so no [T, d] or [n_diag, d] table is built there.
+  K6 is its own integrator (a palindromic A/B schedule over a qubit
+  relabelling), so at 19-24 qubits a hop drive set's psi(T) differs from
+  the eager engine's at O(dt^2), as in the JAX package.
 
 Both take a batch of states with one coefficient set, per-member
 coefficients ``[G, n_controls, n_basis]`` and per-member time grids
@@ -25,8 +29,8 @@ coefficients ``[G, n_controls, n_basis]`` and per-member time grids
 B/G members share a coefficient set and grid. G = B is the JAX
 package's per-seed contract; G < B is how the MC estimator's branches
 share their pulses. The packed engines take one time grid; their
-per-member grids (the MC estimator's at 18+ qubits) and the hop drive
-sets at 19-24 qubits (K6) raise (ROADMAP.md, Queue 1 item 16).
+per-member grids (the MC estimator's at 18+ qubits) raise (ROADMAP.md,
+Queue 1 item 16).
 
 :func:`apply_structured_terms` gives H_k psi for every control term,
 matrix-free, for the MC estimator's perturbation gates.
@@ -38,6 +42,8 @@ import torch
 
 from ..ops import cpx
 from ..ops.cpx import CP
+from ..ops.fused_mega_hop import (invert_perm, permute_amplitude_bits,
+                                  plan_chunked_hop_layout, relabel_mask)
 from ..ops.fused_product import (diag_rows_device, diag_vec_device,
                                  pack_diag_signs, parity_sign_masks,
                                  signs_planes_device)
@@ -49,9 +55,6 @@ _VMEM_PACKED_MAX = 18
 # Smallest size routed to the packed-phase kernels (tests lower this to
 # exercise the packed machinery at cheap sizes).
 _PACKED_MIN_QUBITS = 18
-
-_K6_MSG = ("hop drive sets at 19-24 qubits run on the hop-mega engine "
-           "(K6), which is not ported yet (ROADMAP.md, Queue 1 item 16)")
 
 
 def split_structure_ext(ham: ControlledHamiltonian):
@@ -154,12 +157,13 @@ def select_engine(ham: ControlledHamiltonian) -> str:
     |            | (.. _VMEM_PACKED_  | valued (<= 120 rows, int32 sign   |
     |            | MAX)               | bit-planes); hops ride the plan   |
     | 'mega'     | 19 .. 24, no hops  | the same packed form              |
+    | 'mega_hop' | 19 .. 24 with hops | + a feasible qubit relabelling    |
+    |            |                    | for the hop graph                 |
+    |            |                    | (:func:`..ops.fused_mega_hop.     |
+    |            |                    | plan_chunked_hop_layout`)         |
     | 'xla'      | everything else    | the eager product engine          |
 
-    At 19-24 qubits with hops the JAX package plans a qubit relabeling
-    for its hop-mega engine (K6, 'mega_hop'); that planner and K6 are
-    not ported, so asking raises NotImplementedError. 'xla' keeps the JAX
-    name: no fused engine applies."""
+    'xla' keeps the JAX name: no fused engine applies."""
     if ham.structure is None or not (10 <= ham.n_qubits <= 24):
         return "xla"
     if ham.h0_structure is None or ham.h0_structure.kind != "diag":
@@ -171,7 +175,7 @@ def select_engine(ham: ControlledHamiltonian) -> str:
 
 def _select_engine_uncached(ham: ControlledHamiltonian) -> str:
     n = ham.n_qubits
-    n_rot, used, hops = 0, [], False
+    n_rot, used, hop_entries = 0, [], []
     for st in ham.structure:
         if st.kind == "1q" and _pauli_kind(st.local) is None:
             g = np.asarray(st.local)
@@ -182,9 +186,10 @@ def _select_engine_uncached(ham: ControlledHamiltonian) -> str:
                 return "xla"
             continue  # diagonal 1q drives fold into the phases
         if st.kind == "hop":
+            hop_entries.append((min(st.qubit, st.qubit2),
+                                max(st.qubit, st.qubit2)))
             n_rot += 1
             used += [st.qubit, st.qubit2]
-            hops = True
         elif st.kind == "1q":
             n_rot += 1
             used.append(st.qubit)
@@ -207,8 +212,11 @@ def _select_engine_uncached(ham: ControlledHamiltonian) -> str:
         return "xla"
     if n <= _VMEM_PACKED_MAX:
         return "packed"
-    if hops:
-        raise NotImplementedError(_K6_MSG)
+    if hop_entries:
+        if plan_chunked_hop_layout(hop_entries, ("hop",) * len(hop_entries),
+                                   n) is None:
+            return "xla"
+        return "mega_hop"
     return "mega"
 
 
@@ -273,9 +281,37 @@ def _chain_controls(ham: ControlledHamiltonian, envelope,
     return dt, _group_dt(dt, torch.float32), rows, one_chain
 
 
+def _hop_mega(ham: ControlledHamiltonian) -> bool:
+    """Whether the fused path runs K6: hops past ``_VMEM_PACKED_MAX``."""
+    return bool(split_structure_ext(ham)[7]) \
+        and ham.n_qubits > _VMEM_PACKED_MAX
+
+
+def _hop_layout(ham: ControlledHamiltonian):
+    """(perm, op entries in position space) of K6 for ``ham``'s rotation
+    ops (1q drives, then hops), memoized: ``perm[p]`` is the qubit at
+    position p (:func:`..ops.fused_mega_hop.plan_chunked_hop_layout`)."""
+    if "hop_layout" not in ham._memo:
+        _, _, _, _, oneq_qubits, _, _, hop_pairs = split_structure_ext(ham)
+        entries = tuple(oneq_qubits) + tuple(hop_pairs)
+        kinds = ("x",) * len(oneq_qubits) + ("hop",) * len(hop_pairs)
+        perm = plan_chunked_hop_layout(entries, kinds, ham.n_qubits)
+        if perm is None:  # select_engine names 'xla' for these
+            raise ValueError("no feasible chunk layout for this hop graph; "
+                             "use backend='product'")
+        pos_of = invert_perm(perm)
+        ham._memo["hop_layout"] = (perm, tuple(
+            (min(pos_of[e[0]], pos_of[e[1]]), max(pos_of[e[0]], pos_of[e[1]]))
+            if isinstance(e, tuple) else pos_of[e] for e in entries))
+    return ham._memo["hop_layout"]
+
+
 def _rotation_inputs(ham: ControlledHamiltonian, dtg, u_oneq, u_hop):
-    """(theta_x [T, G, n_ops], op qubits, op kinds) of the fused kernels:
-    hop angles doubled, shared-qubit plans made palindromic."""
+    """(theta_x [T, G, n_ops], op entries, op kinds) of the fused kernels:
+    hop angles doubled, shared-qubit plans made palindromic. For K6
+    (:func:`_hop_mega`) the entries are in the relabelled position space
+    of :func:`_hop_layout` and theta_x is not made palindromic: K6's
+    schedule halves and mirrors the angles itself."""
     _, _, _, _, oneq_qubits, oneq_locals, _, hop_pairs = \
         split_structure_ext(ham)
     kinds = tuple(_pauli_kind(g) for g in oneq_locals)
@@ -290,6 +326,8 @@ def _rotation_inputs(ham: ControlledHamiltonian, dtg, u_oneq, u_hop):
     if hop_pairs:  # kernel angle = 2 x (dt x u) on the {01, 10} subspace
         theta_x = torch.cat(
             [theta_x, (2.0 * (dtg * u_hop)).permute(2, 0, 1)], dim=2)
+    if _hop_mega(ham):
+        return theta_x, _hop_layout(ham)[1], kinds
     qubits, kinds, theta_x = _symmetrize_rots(qubits, kinds, theta_x, dim=2)
     return theta_x, qubits, kinds
 
@@ -318,13 +356,21 @@ def _packed_tables(ham: ControlledHamiltonian, device):
     """(signs [P, d] int32, consts [n_diag], scales [n_diag], h0 [d]) on
     ``device``, memoized per Hamiltonian: the sign planes are built on
     the device from parity masks wherever the rows are Pauli-Z strings,
-    and copied from :func:`pack_diag_signs`'s host planes otherwise."""
+    and copied from :func:`pack_diag_signs`'s host planes otherwise. For
+    K6 (:func:`_hop_mega`) signs and h0 are in the relabelled position
+    space: the planes from the relabelled masks, h0 permuted once."""
     key = ("packed_tables", str(device))
     if key not in ham._memo:
         _, diag_rows, h0_diag, *_ = split_structure_ext(ham)
+        perm = _hop_layout(ham)[0] if _hop_mega(ham) else None
+        relabel = (lambda x: x) if perm is None else (  # noqa: E731
+            lambda x: permute_amplitude_bits(x, perm).contiguous())
         par = parity_sign_masks(diag_rows)
         if par is not None:
             masks, consts, scales = par
+            if perm is not None:
+                masks = tuple(relabel_mask(m, perm, ham.n_qubits)
+                              for m in masks)
             signs = signs_planes_device(masks, ham.dim, device)
         else:
             packed = _packed_form(ham)
@@ -334,26 +380,29 @@ def _packed_tables(ham: ControlledHamiltonian, device):
                     "(every diagonal control row two-valued, <= 120 rows); "
                     "use backend='product' for general diagonals")
             signs_np, consts, scales = packed
-            signs = torch.as_tensor(signs_np, device=device) \
+            signs = relabel(torch.as_tensor(signs_np, device=device)) \
                 if signs_np.size else torch.zeros((1, ham.dim),
                                                   dtype=torch.int32,
                                                   device=device)
         f32 = dict(dtype=torch.float32, device=device)
         ham._memo[key] = (signs, torch.as_tensor(consts, **f32),
                           torch.as_tensor(scales, **f32),
-                          diag_vec_device(h0_diag, torch.float32, device))
+                          relabel(diag_vec_device(h0_diag, torch.float32,
+                                                  device)))
     return ham._memo[key]
 
 
 def packed_chain_inputs(ham: ControlledHamiltonian, envelope,
                         coeff: torch.Tensor, T0, T, horizon: float,
                         n_steps: int, t_sample: str = "left"):
-    """The packed kernels' inputs (K3, K5), in f32 on coeff's device: (ud,
-    theta_x, h0th [d], signs [P, d], op qubits, op kinds). ud holds per
-    step the scaled diagonal controls dt/2 u_k w_k and, last, the offset
-    dt/2 sum_k u_k c_k: [T, n_diag+1] for one coefficient set, [T, G,
-    n_diag+1] for G sets (theta_x as :func:`fused_chain_inputs`). No
-    [.., d] table is built per step: the kernels compute the phases."""
+    """The packed kernels' inputs (K3, K5, K6), in f32 on coeff's device:
+    (ud, theta_x, h0th [d], signs [P, d], op entries, op kinds). ud holds
+    per step the scaled diagonal controls dt/2 u_k w_k and, last, the
+    offset dt/2 sum_k u_k c_k: [T, n_diag+1] for one coefficient set, [T,
+    G, n_diag+1] for G sets (theta_x as :func:`fused_chain_inputs`). No
+    [.., d] table is built per step: the kernels compute the phases. For
+    K6, h0th, signs and the entries are in the position space of
+    :func:`_hop_layout` (see :func:`_rotation_inputs`)."""
     dt, dtg, (u_diag, u_oneq, u_hop), one_chain = _chain_controls(
         ham, envelope, coeff, T0, T, horizon, n_steps, t_sample)
     if isinstance(dt, torch.Tensor) and dt.ndim:
@@ -373,17 +422,53 @@ def packed_chain_inputs(ham: ControlledHamiltonian, envelope,
             qubits, kinds)
 
 
+def _mega_hop_dispatch(n_qubits: int, psi: CP, ud, theta_x, h0th, signs,
+                       entries_pos, kinds, perm, fast: bool,
+                       plain: bool = False) -> CP:
+    """K6 in qubit space: permute psi into the relabelled positions
+    (differentiable), evolve (single for a state [d] or a population of
+    one, batched else), permute back. h0th, signs and the entries are
+    already in position space (:func:`_packed_tables`). ``plain`` runs
+    K6's plain versions instead of the kernels (the card's reference)."""
+    from ..ops import fused_mega_hop as mh
+    if plain:
+        single = mh.chunked_evolve_mega_hop_plain
+        batched = mh.chunked_evolve_mega_hop_batched_plain
+    else:
+        single = lambda *a: mh.chunked_evolve_mega_hop(  # noqa: E731
+            *a, fast_math=fast)
+        batched = lambda *a: mh.chunked_evolve_mega_hop_batched(  # noqa
+            *a, fast_math=fast)
+    args = (h0th, signs, entries_pos, n_qubits, kinds)
+    p = CP(permute_amplitude_bits(psi.re, perm),
+           permute_amplitude_bits(psi.im, perm))
+    if p.ndim == 1:
+        out = single(p, ud, theta_x, *args)
+    elif p.shape[0] == 1:
+        out = single(CP(p.re[0], p.im[0]), ud[:, 0], theta_x[:, 0], *args)
+        out = CP(out.re[None], out.im[None])
+    else:
+        out = batched(p, ud, theta_x, *args)
+    pos_of = invert_perm(perm)
+    return CP(permute_amplitude_bits(out.re, pos_of),
+              permute_amplitude_bits(out.im, pos_of))
+
+
 def packed_evolve(n_qubits: int, psi: CP, ud, theta_x, h0th, signs,
-                  qubits, kinds, fast: bool) -> CP:
+                  qubits, kinds, fast: bool, perm=None) -> CP:
     """The packed dispatch: K3 up to ``_VMEM_PACKED_MAX`` qubits, K5 past
-    it, single for a state [d] or a population of one, batched else.
-    ``psi`` is [d] with rows [T, ...], or [B, d] with rows [T, B, ...].
-    The JAX package chunks a population to fit VMEM; the card's kernels
-    keep the state in global memory and take the whole population in one
-    chain of launches."""
+    it, or K6 when a relabelling ``perm`` is given
+    (:func:`_mega_hop_dispatch`); single for a state [d] or a population
+    of one, batched else. ``psi`` is [d] with rows [T, ...], or [B, d]
+    with rows [T, B, ...]. The JAX package chunks a population to fit
+    VMEM; the card's kernels keep the state in global memory and take the
+    whole population in one chain of launches."""
     from ..ops.fused_chunked import (chunked_evolve_mega,
                                      chunked_evolve_mega_batched)
     from ..ops.fused_product import fused_product_evolve_packed
+    if perm is not None:
+        return _mega_hop_dispatch(n_qubits, psi, ud, theta_x, h0th, signs,
+                                  qubits, kinds, perm, fast)
     args = (h0th, signs, qubits, n_qubits, kinds, fast)
     if n_qubits <= _VMEM_PACKED_MAX:
         if psi.ndim == 2:
@@ -408,9 +493,10 @@ def evolve_product_fused(ham: ControlledHamiltonian, envelope,
                          t_sample: str = "left") -> CP:
     """Same math as :func:`evolve_product` on the engine
     :func:`select_engine` names: K1 for a state [d] or K2 for a batch
-    [B, d] ('streamed', one launch and one adjoint launch), K3 ('packed')
-    or K5 ('mega') with phases computed in the kernel (see the module
-    note for per-member coefficients and times). Runs in f32.
+    [B, d] ('streamed', one launch and one adjoint launch), K3 ('packed'),
+    K5 ('mega') or K6 ('mega_hop') with phases computed in the kernel
+    (see the module note for per-member coefficients and times). Runs in
+    f32.
     ``precision`` 'fast' is accepted and computes what 'full' computes
     (the kernels have no matmul to truncate)."""
     from ..ops.fused_product import (fused_product_evolve,
@@ -419,7 +505,7 @@ def evolve_product_fused(ham: ControlledHamiltonian, envelope,
     if precision not in ("full", "fast"):
         raise ValueError(f"precision must be 'full' or 'fast', "
                          f"got {precision!r}")
-    engine = select_engine(ham)  # raises for K6's drive sets
+    engine = select_engine(ham)
     if engine == "xla":
         raise ValueError("the fused engine does not take this Hamiltonian "
                          "(select_engine gives 'xla'); use "
@@ -441,8 +527,9 @@ def evolve_product_fused(ham: ControlledHamiltonian, envelope,
         elif ud.ndim != 2:
             raise ValueError("per-member coefficients or times need a "
                              "batch of states [B, d]")
+        perm = _hop_layout(ham)[0] if engine == "mega_hop" else None
         return packed_evolve(ham.n_qubits, psi, ud, theta_x, h0th, signs,
-                             qubits, kinds, fast)
+                             qubits, kinds, fast, perm)
     theta_half, theta_x, qubits, kinds = fused_chain_inputs(
         ham, envelope, coeff, T0, T, horizon, n_steps, t_sample)
     if psi.ndim == 1:

@@ -21,8 +21,6 @@ _UNPORTED = {
             "(ROADMAP.md, Queue 1 item 12)",
     "apply": "the dense 'apply' backend is not ported yet "
              "(ROADMAP.md, Queue 1 item 12)",
-    "mega_hop": "the 'mega_hop' engine (K6, 19-24 qubits) is not ported "
-                "yet (ROADMAP.md, Queue 1 item 16)",
 }
 
 
@@ -70,15 +68,15 @@ def evolve(
 
     backend: 'auto' | 'product' | 'product_fused'. 'auto' takes the fused
     engine (:func:`..product.select_engine`: K1 or K2 at 10-17 qubits, K3
-    at 18, K5 at 19-24) for a float32 CUDA state that
-    :func:`..product.fused_eligible` accepts, else the eager 'product'
-    engine (always, on the CPU). Unported backends raise
-    NotImplementedError; none falls back. The engine names 'packed' and
-    'mega' are no backends here, as in the JAX package. ``T0``/``T`` may be tensors on
-    the state's device, 0-dim or one per member (see
-    :mod:`..product`), so a split time drawn on the card is never copied
-    to the host. ``tol`` and ``dt_bound`` belong to the dense backends and
-    are unused.
+    at 18, K5 at 19-24, K6 for hop drive sets at 19-24) for a float32
+    CUDA state that :func:`..product.fused_eligible` accepts, else the
+    eager 'product' engine (always, on the CPU). Unported backends raise
+    NotImplementedError; none falls back. The engine names 'packed',
+    'mega' and 'mega_hop' are no backends here, as in the JAX package.
+    ``T0``/``T`` may be tensors on the state's device, 0-dim or one per
+    member (see :mod:`..product`), so a split time drawn on the card is
+    never copied to the host. ``tol`` and ``dt_bound`` belong to the dense
+    backends and are unused.
     """
     from .product import evolve_product, evolve_product_fused, fused_eligible
     if backend in _UNPORTED:

@@ -30,11 +30,15 @@ from __future__ import annotations
 import torch
 
 from .cpx import CP
-from .fused_product import (_adjoint_packed_plain,
+from .fused_product import (_adjoint_packed_plain, _packed_plan,
                             fused_product_evolve_packed_plain,
                             run_packed_chain)
 
-MAX_QUBITS = 24  # the JAX engine's limit (pass-B blocks need 8 sublanes)
+# The JAX engine's chunk plan. It has no role in the card's kernels, but
+# it decides K6's integrator: K6's pass A holds the ops on positions >= c
+# (ops/fused_mega_hop.py), so c must be the JAX package's.
+_LANE_QUBITS = 7
+_F_BITS = 10  # free row bits per pass-A slab on the TPU
 
 K5_FWD_LAUNCHES = 0
 K5_BWD_LAUNCHES = 0
@@ -42,18 +46,30 @@ K5_BATCHED_FWD_LAUNCHES = 0
 K5_BATCHED_BWD_LAUNCHES = 0
 
 
+def _plan(n_qubits: int):
+    """(c, f): the JAX engine's chunk row bits (top) and free row bits
+    (``diffquantum_tpu/ops/fused_chunked.py::_plan``)."""
+    row_bits = n_qubits - _LANE_QUBITS
+    f = min(row_bits, _F_BITS)
+    c = row_bits - f
+    if c > _F_BITS - 3:  # pass-B block [2^c, Bf, 128] needs Bf >= 8
+        raise ValueError(f"chunked engine supports up to "
+                         f"{_LANE_QUBITS + _F_BITS + _F_BITS - 3} qubits, "
+                         f"got {n_qubits}")
+    return c, f
+
+
 def check_size(n_qubits: int):
-    """The JAX engine's size check (``_plan``): 24 qubits at most."""
-    if n_qubits > MAX_QUBITS:
-        raise ValueError(f"chunked engine supports up to {MAX_QUBITS} "
-                         f"qubits, got {n_qubits}")
+    """The JAX engine's size check (:func:`_plan`): 24 qubits at most."""
+    _plan(n_qubits)
 
 
 def _check_kinds(x_qubits, kinds):
     kinds = tuple(kinds) if kinds else ("x",) * len(x_qubits)
     if any(k not in ("x", "y") for k in kinds):
-        raise ValueError("the mega engine takes X and Y ops only (hops at "
-                         "19-24 qubits are K6's)")
+        raise ValueError("the mega engine takes X and Y ops only (hop "
+                         "drive sets at 19-24 qubits run on K6, "
+                         "ops/fused_mega_hop.py)")
     return kinds
 
 
@@ -74,10 +90,10 @@ def _count_batched(backward: bool):
         K5_BATCHED_FWD_LAUNCHES += 1
 
 
-def _one(psi0: CP, ud, theta_x) -> tuple:
+def _one(psi0: CP, ud, theta_x, what="chunked_evolve_mega") -> tuple:
     """The single form's tensors as a population of one."""
     if psi0.re.ndim != 1 or ud.ndim != 2 or theta_x.ndim != 2:
-        raise ValueError(f"chunked_evolve_mega takes psi0 [d], ud [T, S], "
+        raise ValueError(f"{what} takes psi0 [d], ud [T, S], "
                          f"theta_x [T, n_x]; got {tuple(psi0.re.shape)}, "
                          f"{tuple(ud.shape)}, {tuple(theta_x.shape)}")
     return (CP(psi0.re[None], psi0.im[None]), ud[:, None], theta_x[:, None])
@@ -94,8 +110,9 @@ def chunked_evolve_mega(psi0: CP, ud: torch.Tensor, theta_x: torch.Tensor,
     check_size(n_qubits)
     kinds = _check_kinds(x_qubits, kinds)
     p, u, t = _one(psi0, ud, theta_x)
-    out = run_packed_chain(p, u, t, h0th, signs, x_qubits, n_qubits,
-                           kinds, _count_single, "K5")
+    out = run_packed_chain(p, u, t, h0th, signs,
+                           _packed_plan(x_qubits, kinds, n_qubits),
+                           len(x_qubits), n_qubits, _count_single, "K5")
     return CP(out.re[0], out.im[0])
 
 
@@ -110,8 +127,10 @@ def chunked_evolve_mega_batched(psi0: CP, ud: torch.Tensor,
     del fast_math
     check_size(n_qubits)
     kinds = _check_kinds(x_qubits, kinds)
-    return run_packed_chain(psi0, ud, theta_x, h0th, signs, x_qubits,
-                            n_qubits, kinds, _count_batched, "K5 batched")
+    return run_packed_chain(psi0, ud, theta_x, h0th, signs,
+                            _packed_plan(x_qubits, kinds, n_qubits),
+                            len(x_qubits), n_qubits, _count_batched,
+                            "K5 batched")
 
 
 def chunked_evolve_mega_plain(psi0: CP, ud, theta_x, h0th, signs,

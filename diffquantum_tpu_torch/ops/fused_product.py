@@ -11,8 +11,9 @@ kernels are ``_make_forward_kernel``/``_make_backward_kernel`` (K1) and
 ``_make_backward_kernel_pk``). The CUDA kernels of K1 and K2 live in
 ``csrc/fused_product.cu``, where K1 is K2's block code at one member;
 K3's in ``csrc/packed_phase.cu``, which also backs K5
-(:mod:`.fused_chunked`). This module holds their wrappers, the op plan,
-the table helpers, and the plain PyTorch versions of these kernels.
+(:mod:`.fused_chunked`) and K6 (:mod:`.fused_mega_hop`). This module
+holds their wrappers, the op plan, the table helpers, and the plain
+PyTorch versions of these kernels.
 
 Math (real-pair convention, L real):
   phase    y = e^{-i th} x:  dL/dth = lam_re*y_im - lam_im*y_re (elementwise)
@@ -34,12 +35,16 @@ TPU's row/lane split and XOR-permutation matmuls have no counterpart, so
 ``precision='fast'`` (which on the TPU selects single-pass bf16 matmuls)
 computes exactly what 'full' computes here.
 
-Packed phases (K3, and K5 in :mod:`.fused_chunked`): stage k's angle at
-amplitude j is ``m h0th[j] + off + sum_i a_i (1 - 2 bit_i(j))`` from the
-merged row ``[a_0 .. a_{n_diag-1}, off, m]`` (:func:`merge_ud_rows`) and
-the sign bit-planes (bit i%30 of plane i//30, :func:`pack_diag_signs`):
-no [T, d] table exists, and the backward reduces the phase cotangents to
-``n_diag + 1`` scalars per stage.
+Packed phases (K3, and K5 and K6 in :mod:`.fused_chunked` and
+:mod:`.fused_mega_hop`): stage k's angle at amplitude j is
+``m h0th[j] + off + sum_i a_i (1 - 2 bit_i(j))`` from the merged row
+``[a_0 .. a_{n_diag-1}, off, m]`` (:func:`merge_ud_rows`) and the sign
+bit-planes (bit i%30 of plane i//30, :func:`pack_diag_signs`): no [T, d]
+table exists, and the backward reduces the phase cotangents to
+``n_diag + 1`` scalars per stage. The packed chains run op rows
+(:func:`_packed_plan`) that carry a scale beside their angle slot: a row
+applies its rotation by scale x theta_x[slot], and a slot may have
+several rows (K6's half-angle sweeps), whose scaled gradients add.
 
 Dispatch: CPU tensors take the plain version, CUDA tensors launch the
 kernel (``FWD_LAUNCHES`` / ``BWD_LAUNCHES`` count K1's launches,
@@ -67,6 +72,7 @@ _BWD_SMEM_MAX_QUBITS = 13  # above this the backward keeps y in scratch
 
 PLANE_BITS = 30        # sign bits per int32 plane
 MAX_PACKED_TERMS = 120  # 4 planes
+SCALE_ONE = 2          # a packed op row's scale column counts halves
 
 FWD_LAUNCHES = 0       # K1 launches
 BWD_LAUNCHES = 0
@@ -106,11 +112,37 @@ def _plan_ops(x_qubits: Sequence, kinds: Sequence[str],
     return np.asarray(rows, dtype=np.int32).reshape(len(rows), 4)
 
 
+def _packed_plan(x_qubits: Sequence, kinds: Sequence[str],
+                 n_qubits: int) -> np.ndarray:
+    """The packed chains' op rows [n_ops, 5]: :func:`_plan_ops`'s rows
+    with a scale column, here 1 for every row (``SCALE_ONE`` halves)."""
+    return _with_scale(_plan_ops(x_qubits, kinds, n_qubits), SCALE_ONE)
+
+
+def _with_scale(rows: np.ndarray, halves: int) -> np.ndarray:
+    """Op rows [n, 4] with a scale column of ``halves`` halves added."""
+    return np.concatenate(
+        [rows, np.full((len(rows), 1), halves, np.int32)], axis=1)
+
+
+def _row_scale(op) -> float:
+    """The scale of a packed op row."""
+    return 0.5 * int(op[4])
+
+
 @functools.lru_cache(maxsize=64)
 def _plan_tensor(plan_key: tuple, device: torch.device) -> torch.Tensor:
-    """The op table on ``device`` (cached: one host copy per plan)."""
+    """An int32 table of rows on ``device`` (cached: one host copy per
+    plan)."""
+    width = len(plan_key[0]) if plan_key else 4
     return torch.tensor(plan_key, dtype=torch.int32,
-                        device=device).reshape(len(plan_key), 4)
+                        device=device).reshape(len(plan_key), width)
+
+
+@functools.lru_cache(maxsize=64)
+def _int_tensor(values: tuple, device: torch.device) -> torch.Tensor:
+    """A flat int32 table on ``device`` (cached)."""
+    return torch.tensor(values, dtype=torch.int32, device=device)
 
 
 def merge_phase_rows(theta_half: torch.Tensor) -> torch.Tensor:
@@ -325,7 +357,7 @@ def _check_inputs(psi_re, psi_im, theta_half, theta_x, n_qubits, n_ops):
 
 
 def _rot_plain(re, im, op, c, s, d):
-    _, kind, ma, mb = (int(v) for v in op)
+    kind, ma, mb = int(op[1]), int(op[2]), int(op[3])
     if kind == KIND_X:
         g_re, g_im = _flip(re, ma), _flip(im, ma)
         return c * re + s * g_im, c * im - s * g_re
@@ -370,7 +402,7 @@ def _undo_rot_plain(y_re, y_im, l_re, l_im, op, c, s, d):
     """Invert one rotation on states [..., d]: returns (x_re, x_im,
     lam_x_re, lam_x_im, dL/dtheta [...]), deriving G(x) from G(y)
     (G^2 = I, K^2 = -I)."""
-    _, kind, ma, mb = (int(v) for v in op)
+    kind, ma, mb = int(op[1]), int(op[2]), int(op[3])
     if kind == KIND_X:
         gy_re, gy_im = _flip(y_re, ma), _flip(y_im, ma)
         gl_re, gl_im = _flip(l_re, ma), _flip(l_im, ma)
@@ -737,9 +769,10 @@ def fused_product_evolve_batched(psi0: CP, theta_half: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _check_inputs_pk(psi_re, psi_im, ud, theta_x, h0th, signs, n_qubits,
-                     n_ops, what="fused_product_evolve_packed"):
+                     n_x, what="fused_product_evolve_packed"):
     """The packed contract: psi [B, d], ud [T, B, n_diag+1], theta_x
-    [T, B, n_x], h0th [d] f32, signs [P, d] int32 with 30 P >= n_diag."""
+    [T, B, n_x] (n_x angle slots, whatever the number of op rows that
+    read them), h0th [d] f32, signs [P, d] int32 with 30 P >= n_diag."""
     ts = (psi_re, psi_im, ud, theta_x, h0th, signs)
     if len({t.device for t in ts}) != 1:
         raise ValueError(f"{what}: inputs on different devices")
@@ -761,8 +794,8 @@ def _check_inputs_pk(psi_re, psi_im, ud, theta_x, h0th, signs, n_qubits,
             or not 1 <= ud.shape[2] <= MAX_PACKED_TERMS + 1:
         raise ValueError(f"ud must be [T>=1, {b}, n_diag+1] with n_diag <= "
                          f"{MAX_PACKED_TERMS}, got {tuple(ud.shape)}")
-    if theta_x.shape != (ud.shape[0], b, n_ops):
-        raise ValueError(f"theta_x must be [{ud.shape[0]}, {b}, {n_ops}], "
+    if theta_x.shape != (ud.shape[0], b, n_x):
+        raise ValueError(f"theta_x must be [{ud.shape[0]}, {b}, {n_x}], "
                          f"got {tuple(theta_x.shape)}")
     n_diag = ud.shape[2] - 1
     if h0th.shape != (d,) or signs.ndim != 2 or signs.shape[1] != d \
@@ -771,9 +804,9 @@ def _check_inputs_pk(psi_re, psi_im, ud, theta_x, h0th, signs, n_qubits,
         raise ValueError(f"h0th must be [{d}] and signs [P, {d}] with "
                          f"30 P >= {n_diag}, got {tuple(h0th.shape)}, "
                          f"{tuple(signs.shape)}")
-    if n_ops > MAX_OPS:
-        raise ValueError(f"op plan has {n_ops} ops; the kernel holds "
-                         f"{MAX_OPS}")
+    if n_x > MAX_OPS:
+        raise ValueError(f"op plan has {n_x} angle slots; the kernels "
+                         f"hold {MAX_OPS}")
 
 
 def _sign_bit(signs: torch.Tensor, k: int) -> torch.Tensor:
@@ -793,7 +826,8 @@ def _packed_angle(row: torch.Tensor, h0th, signs, n_diag: int):
 
 
 def _packed_core(re, im, udm, tx, h0th, signs, plan, d):
-    """The forward stage loop on states [B, d] with packed phases."""
+    """The forward stage loop on states [B, d] with packed phases; each
+    op row rotates by its scale times its slot's angle."""
     n_steps, n_diag = tx.shape[0], udm.shape[2] - 2
     for k in range(n_steps + 1):
         th = _packed_angle(udm[k], h0th, signs, n_diag)
@@ -802,7 +836,7 @@ def _packed_core(re, im, udm, tx, h0th, signs, plan, d):
         if k == n_steps:
             break
         for op in plan:
-            a = tx[k, :, int(op[0])][:, None]
+            a = _row_scale(op) * tx[k, :, int(op[0])][:, None]
             re, im = _rot_plain(re, im, op, torch.cos(a), torch.sin(a), d)
     return re, im
 
@@ -812,7 +846,8 @@ def _packed_adjoint_core(y_re, y_im, l_re, l_im, udm, tx, h0th, signs,
     """The backward stage loop of :func:`_packed_core`: (dpsi0 re, im,
     merged-row cotangents [T+1, B, n_diag+1], d theta_x [T, B, n_x]).
     Slot k of a merged row gets S0 - 2 S_k and the offset slot S0, with
-    S0 = sum_j g_j, S_k = sum_j g_j bit_k(j), g = dL/d angle."""
+    S0 = sum_j g_j, S_k = sum_j g_j bit_k(j), g = dL/d angle. A slot's
+    d theta_x is the sum of its rows' gradients, each times its scale."""
     n_steps, n_diag = tx.shape[0], udm.shape[2] - 2
     b = y_re.shape[0]
     gud = torch.empty((n_steps + 1, b, n_diag + 1), dtype=torch.float32,
@@ -821,12 +856,12 @@ def _packed_adjoint_core(y_re, y_im, l_re, l_im, udm, tx, h0th, signs,
     for k in range(n_steps, -1, -1):
         if k < n_steps:
             for op in plan[::-1]:
-                j = int(op[0])
-                a = tx[k, :, j][:, None]
+                j, scale = int(op[0]), _row_scale(op)
+                a = scale * tx[k, :, j][:, None]
                 y_re, y_im, l_re, l_im, g = _undo_rot_plain(
                     y_re, y_im, l_re, l_im, op, torch.cos(a), torch.sin(a),
                     d)
-                gtx[k, :, j] = g
+                gtx[k, :, j] += scale * g
         g = l_re * y_im - l_im * y_re
         s0 = g.sum(-1)
         for i in range(n_diag):
@@ -848,9 +883,17 @@ def fused_product_evolve_packed_plain(psi0: CP, ud: torch.Tensor,
     """K3's forward in plain PyTorch: the packed contract of
     :func:`fused_product_evolve_packed`, any device."""
     kinds = tuple(kinds) if kinds else ("x",) * len(x_qubits)
-    plan = _plan_ops(x_qubits, kinds, n_qubits)
+    return packed_chain_plain(psi0, ud, theta_x, h0th, signs,
+                              _packed_plan(x_qubits, kinds, n_qubits),
+                              len(x_qubits), n_qubits)
+
+
+def packed_chain_plain(psi0: CP, ud, theta_x, h0th, signs, plan, n_x: int,
+                       n_qubits: int, what: str = "packed chain") -> CP:
+    """The packed chain of op rows ``plan`` over [B, d] in plain PyTorch,
+    any device: the forward of K3, K5 and K6."""
     _check_inputs_pk(psi0.re, psi0.im, ud, theta_x, h0th, signs, n_qubits,
-                     len(plan))
+                     n_x, what)
     re, im = _packed_core(psi0.re, psi0.im, merge_ud_rows(ud), theta_x,
                           h0th, signs, plan, 1 << n_qubits)
     return CP(re, im)
@@ -862,9 +905,18 @@ def _adjoint_packed_plain(psi_T: CP, lam: CP, ud, theta_x, h0th, signs,
     """K3's backward in plain PyTorch: (dpsi0 CP [B, d], d ud
     [T, B, n_diag+1], d theta_x [T, B, n_x])."""
     kinds = tuple(kinds) if kinds else ("x",) * len(x_qubits)
-    plan = _plan_ops(x_qubits, kinds, n_qubits)
+    return packed_adjoint_plain(psi_T, lam, ud, theta_x, h0th, signs,
+                                _packed_plan(x_qubits, kinds, n_qubits),
+                                len(x_qubits), n_qubits)
+
+
+def packed_adjoint_plain(psi_T: CP, lam: CP, ud, theta_x, h0th, signs,
+                         plan, n_x: int, n_qubits: int,
+                         what: str = "packed chain"):
+    """The backward of :func:`packed_chain_plain`: (dpsi0 CP [B, d], d ud
+    [T, B, n_diag+1], d theta_x [T, B, n_x])."""
     _check_inputs_pk(psi_T.re, psi_T.im, ud, theta_x, h0th, signs,
-                     n_qubits, len(plan))
+                     n_qubits, n_x, what)
     g_re, g_im, gud, gtx = _packed_adjoint_core(
         psi_T.re, psi_T.im, lam.re, lam.im, merge_ud_rows(ud), theta_x,
         h0th, signs, plan, 1 << n_qubits)
@@ -912,9 +964,10 @@ def _pass_plan(plan: np.ndarray, n_qubits: int, k: int, lc: int):
     passes (ops on the high bits) and cross passes (one op with a bit on
     each side, e.g. a hop across the tile boundary). An op joins the
     latest pass of its kind only when it commutes with every op after
-    that pass (disjoint bits), so the product is the plan's own. Returns
-    (passes [(kind, [plan rows])], table [n_ops, 4] int32 with each op's
-    masks in its pass's local index space)."""
+    that pass (disjoint bits) and that pass holds fewer than ``MAX_OPS``
+    ops, so the product is the plan's own. Returns (passes [(kind, [plan
+    rows])], table [n_ops, width] int32: each row with its masks in its
+    pass's local index space, its other columns as they are)."""
     low = (1 << k) - 1
     passes = [(PASS_TILE, [])]
     for op in plan:
@@ -929,18 +982,19 @@ def _pass_plan(plan: np.ndarray, n_qubits: int, k: int, lc: int):
                     break
                 if any(_op_bits(o) & bits for o in ops):
                     break
-        if target is None:
+        if target is None or len(target) >= MAX_OPS:
             passes.append((kind, [op]))
         else:
             target.append(op)
     rows = []
     for pk, ops in passes:
         for op in ops:
-            slot, kd, ma, mb = (int(v) for v in op)
+            row = [int(v) for v in op]
             if pk == PASS_STRIDED:
-                ma, mb = (ma >> k) << lc, (mb >> k) << lc
-            rows.append((slot, kd, ma, mb))
-    return passes, np.asarray(rows, dtype=np.int32).reshape(len(rows), 4)
+                row[2], row[3] = (row[2] >> k) << lc, (row[3] >> k) << lc
+            rows.append(row)
+    return passes, np.asarray(rows, dtype=np.int32).reshape(
+        len(rows), plan.shape[1])
 
 
 def _pass_blocks(kind: int, n_qubits: int, k: int, lc: int) -> int:
@@ -953,27 +1007,37 @@ def _pass_blocks(kind: int, n_qubits: int, k: int, lc: int) -> int:
 
 @functools.lru_cache(maxsize=64)
 def _pass_layout(plan_key: tuple, n_qubits: int, planes: int,
-                 n_diag: int):
-    """For a plan (rows as a tuple) and ``planes`` (2 forward, 4
-    backward): (k, lc, passes int32 [n_pass, 6] = (kind, first op row,
-    op count, blocks, partial offset, partial width), op table [n_ops, 4],
-    slot table int32 [n_x, 4] = (partial offset, blocks, width, column)
-    of each angle slot, partial floats per stage and member). Backward
-    blocks write their partial sums at (offset + block * width + column):
-    a tile pass's columns are its ops, then S_0..S_{n_diag-1} and S0."""
-    plan = np.asarray(plan_key, dtype=np.int32).reshape(len(plan_key), 4)
+                 n_diag: int, n_x: int = None):
+    """For a plan (packed op rows as a tuple) and ``planes`` (2 forward,
+    4 backward): (k, lc, passes int32 [n_pass, 6]
+    = (kind, first op row, op count, blocks, partial offset, partial
+    width), op table [n_ops, 5], slot table, partial floats per stage and
+    member). Backward blocks write their partial sums at (offset + block
+    * width + column): a tile pass's columns are its ops, then
+    S_0..S_{n_diag-1} and S0. The slot table (int32, flat) lists every
+    (pass, column) where each of the ``n_x`` angle slots (default: the
+    largest slot + 1) has a row: ``n_x + 1`` offsets, then per location
+    (partial offset, blocks, width, column), each slot's locations in
+    plan order."""
+    plan = np.asarray(plan_key, dtype=np.int32).reshape(len(plan_key), 5)
+    if n_x is None:
+        n_x = int(plan[:, 0].max()) + 1 if len(plan) else 0
     k, lc = _tile_plan(n_qubits, planes)
     passes, table = _pass_plan(plan, n_qubits, k, lc)
-    desc, slots = [], np.zeros((len(plan), 4), np.int32)
+    desc, locs = [], [[] for _ in range(n_x)]
     first, off = 0, 0
     for i, (kind, ops) in enumerate(passes):
         blocks = _pass_blocks(kind, n_qubits, k, lc)
         width = len(ops) + (n_diag + 1 if i == 0 else 0)
         desc.append((kind, first, len(ops), blocks, off, width))
         for col, op in enumerate(ops):
-            slots[int(op[0])] = (off, blocks, width, col)
+            locs[int(op[0])].append((off, blocks, width, col))
         first += len(ops)
         off += blocks * width
+    starts = np.cumsum([0] + [len(v) for v in locs])
+    slots = np.concatenate([starts, np.asarray(
+        [x for v in locs for loc in v for x in loc], np.int64)]
+    ).astype(np.int32)
     return (k, lc, np.asarray(desc, np.int32).reshape(-1, 6), table, slots,
             off)
 
@@ -998,12 +1062,13 @@ def _host_ptr(a: np.ndarray):
 
 def _packed_forward_cuda(psi_re, psi_im, udm, tx, h0th, signs, plan,
                          n_qubits, what):
-    """One forward chain on the card (K3 or K5): the state [B, d] is
-    copied once and updated in place by the ~2T+1 pass launches that
-    ``dq_pk_forward`` enqueues."""
+    """One forward chain on the card (K3, K5 or K6): the state [B, d] is
+    copied once and updated in place by the pass launches (~2T+1 for
+    K3/K5's plans) that ``dq_pk_forward`` enqueues."""
     b, n_diag = psi_re.shape[0], udm.shape[2] - 2
     plan_key = tuple(map(tuple, plan.tolist()))
-    k, lc, desc, table, _, _ = _pass_layout(plan_key, n_qubits, 2, n_diag)
+    k, lc, desc, table, _, _ = _pass_layout(plan_key, n_qubits, 2, n_diag,
+                                            tx.shape[2])
     ops = _plan_tensor(tuple(map(tuple, table.tolist())), psi_re.device)
     out_re = psi_re.clone(memory_format=torch.contiguous_format)
     out_im = psi_im.clone(memory_format=torch.contiguous_format)
@@ -1030,10 +1095,10 @@ def _packed_backward_cuda(out_re, out_im, lam_re, lam_im, udm, tx, h0th,
     n_steps, n_x = tx.shape[0], tx.shape[2]
     plan_key = tuple(map(tuple, plan.tolist()))
     k, lc, desc, table, slots, stride = _pass_layout(plan_key, n_qubits, 4,
-                                                     n_diag)
+                                                     n_diag, n_x)
     dev = out_re.device
     ops = _plan_tensor(tuple(map(tuple, table.tolist())), dev)
-    slot_tab = _plan_tensor(tuple(map(tuple, slots.tolist())), dev)
+    slot_tab = _int_tensor(tuple(slots.tolist()), dev)
     y_re = out_re.clone(memory_format=torch.contiguous_format)
     y_im = out_im.clone(memory_format=torch.contiguous_format)
     l_re = lam_re.clone(memory_format=torch.contiguous_format)
@@ -1067,17 +1132,17 @@ def _count_k3(backward: bool):
 
 
 class _PackedEvolve(torch.autograd.Function):
-    """psi(T) and its exact adjoint with packed phases, over [B, d]: the
-    pass kernels on the card (K3, or K5 through :mod:`.fused_chunked`),
-    the plain pair on the CPU. ``count(backward)`` is the calling entry
-    point's launch counter."""
+    """psi(T) and its exact adjoint with packed phases, over [B, d], for
+    the op rows ``plan`` on ``n_x`` angle slots: the pass kernels on the
+    card (K3, or K5 and K6 through :mod:`.fused_chunked` and
+    :mod:`.fused_mega_hop`), the plain pair on the CPU.
+    ``count(backward)`` is the calling entry point's launch counter."""
 
     @staticmethod
-    def forward(ctx, psi_re, psi_im, ud, theta_x, h0th, signs, x_qubits,
-                n_qubits, kinds, count, what):
-        plan = _plan_ops(x_qubits, kinds, n_qubits)
+    def forward(ctx, psi_re, psi_im, ud, theta_x, h0th, signs, plan, n_x,
+                n_qubits, count, what):
         _check_inputs_pk(psi_re, psi_im, ud, theta_x, h0th, signs, n_qubits,
-                         len(plan), what)
+                         n_x, what)
         udm = merge_ud_rows(ud)
         if psi_re.is_cuda:
             out_re, out_im = _packed_forward_cuda(
@@ -1111,14 +1176,13 @@ class _PackedEvolve(torch.autograd.Function):
                 None, None, None, None, None)
 
 
-def run_packed_chain(psi0: CP, ud, theta_x, h0th, signs, x_qubits: tuple,
-                     n_qubits: int, kinds, count, what: str) -> CP:
-    """The packed chain over [B, d] through :class:`_PackedEvolve`, the
-    body of K3's and K5's entry points."""
-    kinds = tuple(kinds) if kinds else ("x",) * len(x_qubits)
+def run_packed_chain(psi0: CP, ud, theta_x, h0th, signs, plan, n_x: int,
+                     n_qubits: int, count, what: str) -> CP:
+    """The packed chain of op rows ``plan`` (:func:`_packed_plan`, or
+    K6's half-angle rows) over [B, d] through :class:`_PackedEvolve`, the
+    body of K3's, K5's and K6's entry points."""
     re, im = _PackedEvolve.apply(psi0.re, psi0.im, ud, theta_x, h0th, signs,
-                                 tuple(x_qubits), n_qubits, kinds, count,
-                                 what)
+                                 plan, n_x, n_qubits, count, what)
     return CP(re, im)
 
 
@@ -1138,5 +1202,7 @@ def fused_product_evolve_packed(psi0: CP, ud: torch.Tensor,
     bit-planes (:func:`pack_diag_signs`, no cotangent). ``fast_math``
     changes nothing, as for :func:`fused_product_evolve`."""
     del fast_math
-    return run_packed_chain(psi0, ud, theta_x, h0th, signs, x_qubits,
-                            n_qubits, kinds, _count_k3, "K3")
+    kinds = tuple(kinds) if kinds else ("x",) * len(x_qubits)
+    return run_packed_chain(psi0, ud, theta_x, h0th, signs,
+                            _packed_plan(x_qubits, kinds, n_qubits),
+                            len(x_qubits), n_qubits, _count_k3, "K3")

@@ -1,7 +1,7 @@
 """Where the time of the port's MaxCut paths goes, on a card.
 
     python3 scripts/profile_torch_step.py [--steps 50]
-        [--path grad|seeds|mc|mc_seeds|fd|grad18|grad20|grad24|all]
+        [--path grad|seeds|mc|mc_seeds|fd|grad18|grad20|grad24|grad20hop|all]
 
 Paths (the ring MaxCut, n_basis 6, 30 Strang steps; 12 qubits unless
 named):
@@ -12,7 +12,10 @@ named):
   fd        one ``fd_energy_grad`` call, 288 perturbed sets (K2);
   grad18    one ``energy_and_grad`` call at 18 qubits (K3);
   grad20    the same at 20 qubits (K5);
-  grad24    the same at 24 qubits (K5).
+  grad24    the same at 24 qubits (K5);
+  grad20hop one ``energy_and_grad`` call on the 20-qubit molecule drive
+            set (X and Y on every qubit, hops and ZZ on the pairs (i, i+1)
+            and (i, i+2), n_basis 4; chip_smoke.py's ``hop_problem``): K6.
 A problem is built only for the paths asked for (the 24-qubit one takes
 the host tens of seconds).
 For each it runs the steps under ``torch.profiler`` and prints: the wall
@@ -35,7 +38,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PATHS = ("grad", "seeds", "mc", "mc_seeds", "fd", "grad18", "grad20",
-         "grad24")
+         "grad24", "grad20hop")
 
 
 def make_run(name):
@@ -49,18 +52,24 @@ def make_run(name):
     from diffquantum_tpu_torch.parallel import train_energy_seeds
     from diffquantum_tpu_torch.train.config import TrainConfig
 
+    def loop(fn):
+        def run(k):
+            for _ in range(k):
+                fn()
+        return run
+
+    if name == "grad20hop":
+        from chip_smoke import hop_problem
+        hop = hop_problem(20)
+        return loop(lambda: energy_and_grad(
+            hop.ham, hop.envelope, hop.measurement, hop.coeff, hop.psi0,
+            hop.T, 30))
     n = int(name[4:]) if name.startswith("grad") and name != "grad" else 12
     prob = maxcut.build_maxcut(n, maxcut.ring_graph(n), n_basis=6)
     coeff = torch.tensor(1e-3 * np.random.default_rng(0).standard_normal(
         prob.envelope.coeff_shape), dtype=torch.float32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     common = (prob.ham, prob.envelope, prob.measurement)
-
-    def loop(fn):
-        def run(k):
-            for _ in range(k):
-                fn()
-        return run
 
     def seeds(**kw):
         return lambda k: train_energy_seeds(

@@ -1,10 +1,9 @@
 """Guards of the PyTorch port: it imports neither JAX nor the JAX package,
 its entry points refuse to run on the CPU unless asked, what is not
 ported raises NotImplementedError instead of falling back (device meshes,
-LR schedules, checkpoints, dense and channel objectives, hop drive sets
-at 19-24 qubits, the MC and FD estimators at 18+ qubits), the JAX
-package's engine names are no backends, and chip_smoke.py fails without a
-card."""
+LR schedules, checkpoints, dense and channel objectives, the MC and FD
+estimators at 18+ qubits), the JAX package's engine names are no
+backends, and chip_smoke.py fails without a card."""
 import ast
 import os
 import pathlib
@@ -87,7 +86,7 @@ def _small_problem():
     # engine names, which the JAX package's evolve does not take either
     pytest.param("packed", ValueError, "unknown backend", id="packed"),
     pytest.param("mega", ValueError, "unknown backend", id="mega"),
-    pytest.param("mega_hop", NotImplementedError, "ROADMAP.md",
+    pytest.param("mega_hop", ValueError, "unknown backend",
                  id="mega_hop")])
 def test_unported_backends_raise(backend, error, match):
     p = _small_problem()
@@ -109,14 +108,11 @@ def _ham(n, hop=False):
 @pytest.mark.parametrize("n", [18, 19])
 def test_router_raises_past_the_streamed_band(n):
     """Past the streamed band the router names K3 ('packed', 18 qubits,
-    hops too) and K5 ('mega', 19-24); only hop drive sets at 19-24
-    qubits, which the JAX package sends to K6, raise."""
+    hops too), K5 ('mega', 19-24) and, for hop drive sets at 19-24
+    qubits, K6 ('mega_hop'); none of them raises."""
     assert tprod.select_engine(_ham(n)) == ("packed" if n == 18 else "mega")
-    if n == 18:
-        assert tprod.select_engine(_ham(n, hop=True)) == "packed"
-    else:
-        with pytest.raises(NotImplementedError, match="K6.*ROADMAP.md"):
-            tprod.select_engine(_ham(n, hop=True))
+    assert tprod.select_engine(_ham(n, hop=True)) == \
+        ("packed" if n == 18 else "mega_hop")
 
 
 @pytest.mark.parametrize("what", ["mesh", "cosine", "checkpoint",

@@ -2,7 +2,8 @@
 package on the CPU: the sign-plane tables bit for bit, K3's
 plain forward and VJP against the Pallas kernel in interpret mode (X, Y
 and hop ops, B = 1 and 2, T = 1), the router's engine names at 10-25
-qubits, and the pass plan that the card's kernels run, emulated here.
+qubits (hops at 18 and 19 included), and the pass plan that the card's
+kernels run, emulated here.
 
 Inputs are drawn once from a seeded numpy generator and handed to both
 packages. Tolerances: states atol 1e-5; gradients 1e-4 of their max-norm
@@ -238,7 +239,7 @@ def test_pass_plan_applies_the_plan(n, plan, planes):
         xq, kinds = tuple(range(n)) + (0,), ("x",) * n + ("y",)
     else:
         xq, kinds = PLANS[plan]
-    ops = tfp._plan_ops(xq, kinds, n)
+    ops = tfp._packed_plan(xq, kinds, n)
     k, lc, desc, table, slots, _ = tfp._pass_layout(
         tuple(map(tuple, ops.tolist())), n, planes, 4)
     passes, _ = tfp._pass_plan(ops, n, k, lc)
@@ -269,7 +270,7 @@ def test_tile_plan_at_the_frontier(n):
     """The ring MaxCut's plan is one tile and one strided pass per step;
     blocks fit shared memory and rows stay 32-byte segments except the
     24-qubit backward's (16 bytes)."""
-    plan = tfp._plan_ops(tuple(range(n)), ("x",) * n, n)
+    plan = tfp._packed_plan(tuple(range(n)), ("x",) * n, n)
     for planes in (2, 4):
         k, lc, desc, _, slots, stride = tfp._pass_layout(
             tuple(map(tuple, plan.tolist())), n, planes, n)
@@ -329,9 +330,7 @@ def test_router_hops_and_unpackable_rows_match_jax():
     jh, th = _min_hams(18, rows=[r])
     assert tprod.select_engine(th) == jprod.select_engine(jh) == "xla"
     jh, th = _min_hams(19, hop=True)
-    assert jprod.select_engine(jh) == "mega_hop"
-    with pytest.raises(NotImplementedError, match="K6"):
-        tprod.select_engine(th)
+    assert tprod.select_engine(th) == jprod.select_engine(jh) == "mega_hop"
 
 
 @pytest.mark.gpu
