@@ -70,6 +70,7 @@ at the first phase that does not hold:
 It needs a card: without one, or outside a checkout, it exits non-zero
 and prints no result. It imports nothing of JAX.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -571,6 +572,8 @@ COUNTERS = {  # kernel name -> (module, launch counter)
     "k6_backward": ("fused_mega_hop", "K6_BWD_LAUNCHES"),
     "k6_batched_forward": ("fused_mega_hop", "K6_BATCHED_FWD_LAUNCHES"),
     "k6_batched_backward": ("fused_mega_hop", "K6_BATCHED_BWD_LAUNCHES"),
+    "k7_forward": ("taylor_apply", "K7_FWD_LAUNCHES"),
+    "k7_backward": ("taylor_apply", "K7_BWD_LAUNCHES"),
 }
 
 
@@ -1678,6 +1681,468 @@ def phase_times():
     return out
 
 
+# --------------------------------------------------------------------------
+# the dense slice: K7 (csrc/taylor_apply.cu) and its paths
+# --------------------------------------------------------------------------
+
+# K7 against its plain version on the card: forward atol on states of unit
+# norm, gradients (gH, gpsi) relative to their max-norm. An H100 run read
+# 8.9e-8 forward at worst (CNOT columns, d = 4) and 2.6e-6 on dH_im (10q
+# MC branches, d = 1024, B = 40), so the limits sit ~4.5x and ~3.8x above.
+TOL_K7 = {"fwd": 4e-7, "grad": 1e-5}
+# The dense paths through K7 ('apply') against the dense 'expm' backend
+# (torch.matmul, no kernel) on the card, f32 both: value atol, gradient
+# relative to its max-norm. The two integrate the same piecewise-constant
+# steps; f32 'expm' carries the larger error (its squarings amplify
+# rounding). An H100 run read 8.9e-5 on the 10q step's value and 2.3e-5
+# at most on a gradient (the MC one), so the limits sit ~4.5x and ~4.4x
+# above. Against the same step in float64 ('expm', exact operators) the
+# K7 path read 7.6e-6 on the value and 2.2e-6 on the gradient (f32 'expm'
+# 9.6e-5 and 2.1e-5): limits ~3.9x and ~4.5x above.
+DENSE_VALUE_ATOL = 4e-4
+DENSE_GRAD_REL = 1e-4
+DENSE_F64_VALUE_ATOL = 3e-5
+DENSE_F64_GRAD_REL = 1e-5
+CNOT = np.eye(4)[[0, 1, 3, 2]]  # control = qubit 0
+
+
+def taylor_bound(d, b, order, substeps, backward):
+    """(bound_ms, bound_by) of one K7 call on [B, d] states: bytes of H
+    read once, psi (and, backward, the cotangent) read once, the outputs
+    (out; gH and gpsi) written once; operations: a term is a complex
+    product, 8 B d^2, plus its scale and sum, 8 B d. The backward
+    recomputes the forward's terms but the last (n - 1 products, n =
+    order x substeps), carries the cotangent back through H^dagger (n
+    products) and adds each term's rank-B update to gH (n times
+    8 B d^2)."""
+    n = order * substeps
+    per = 8 * b * d * d + 8 * b * d
+    if backward:
+        nbytes, ops = 4 * (4 * d * d + 6 * b * d), (3 * n - 1) * per
+    else:
+        nbytes, ops = 4 * (2 * d * d + 4 * b * d), n * per
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+_DENSE = {}
+
+
+def dense_problems():
+    """The dense problems of this slice on the card, built once: the
+    10-qubit ring MaxCut (dense=True, n_basis 6), the reference demo
+    (4-qubit ring, dense by default), the control problems and H2."""
+    if not _DENSE:
+        from diffquantum_tpu_torch.models import control, maxcut, vqe_h2
+        t0 = time.perf_counter()
+        ring = maxcut.build_maxcut(10, maxcut.ring_graph(10), n_basis=6,
+                                   dense=True, device=DEVICE)
+        log(f"host: 10q dense ring MaxCut (20 controls of 1024 x 1024, "
+            f"11 measurement terms): build_maxcut "
+            f"{time.perf_counter() - t0:.3f} s (the norms' and the term "
+            f"table's eigendecompositions)")
+        _DENSE.update(
+            ring=ring, demo=maxcut.demo_problem(device=DEVICE),
+            two=control.two_qubit_controls(device=DEVICE),
+            transfer=control.state_transfer(1, device=DEVICE),
+            bell=control.bell_state_preparation(device=DEVICE),
+            hadamard=control.hadamard_synthesis(device=DEVICE),
+            h2=vqe_h2.build_h2(device=DEVICE))
+    return _DENSE
+
+
+def _a_bound(ham, envelope, T, n_steps):
+    from diffquantum_tpu_torch.dynamics.propagator import _amplitude_bound
+    return T / n_steps * ham.norm_bound(_amplitude_bound(envelope))
+
+
+def k7_inputs(ham, envelope, T, n_steps, b, seed):
+    """One step's K7 inputs at a path's shape: H(t) at amplitudes drawn
+    within the envelope's bounds, B random unit states, a random unit
+    cotangent, and the path's z = -i T/n_steps with its order and
+    substeps."""
+    import torch
+    from diffquantum_tpu_torch.ops import taylor_apply as ta
+    from diffquantum_tpu_torch.ops.cpx import CP
+    from diffquantum_tpu_torch.ops.expm import taylor_params
+    rng = np.random.default_rng(seed)
+    omg = np.asarray(envelope.omegas)
+    u = torch.tensor(omg * rng.uniform(-1, 1, omg.shape), dtype=torch.float32,
+                     device=DEVICE)
+    h = ham.at(u)
+    d = h.shape[-1]
+    order, s = taylor_params(_a_bound(ham, envelope, T, n_steps))
+    psi = _random_cp(rng, (b, d), 1.0 / np.sqrt(2 * d))
+    g = _random_cp(rng, (b, d), 1.0 / np.sqrt(2 * d))
+    zs = ta.substep_z(0.0, -T / n_steps, 2**s, psi.re)
+    return CP(h.re.contiguous(), h.im.contiguous()), psi, g, zs, order, 2**s
+
+
+def _unaligned_inputs():
+    """tests/test_pallas.py's unaligned case: d = 48, B = 5, a random
+    Hermitian H, z = -0.31 i."""
+    import torch
+    from diffquantum_tpu_torch.ops import taylor_apply as ta
+    from diffquantum_tpu_torch.ops.cpx import CP
+    from diffquantum_tpu_torch.ops.expm import taylor_params
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((48, 48)) + 1j * rng.standard_normal((48, 48))
+    h = (a + a.conj().T) / 2
+    order, s = taylor_params(0.31 * np.linalg.norm(h, 2))
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=DEVICE)  # noqa
+    psi = _random_cp(rng, (5, 48), 0.1)
+    g = _random_cp(rng, (5, 48), 0.1)
+    zs = ta.substep_z(0.0, -0.31, 2**s, psi.re)
+    return CP(f(h.real), f(h.imag)), psi, g, zs, order, 2**s
+
+
+def dense_kernel_cases():
+    """(label, inputs) of K7 at the shapes of this slice's paths."""
+    p = dense_problems()
+    from diffquantum_tpu_torch.pulses.envelope import SimpleEnvelope
+    had, two, demo, ring = p["hadamard"], p["two"], p["demo"], p["ring"]
+    cnot_env = SimpleEnvelope(basis="bspline", n_basis=6, omegas=two[1])
+    return [
+        ("Hadamard MC branches, d=2 B=4",
+         k7_inputs(had.ham, had.envelope, had.T, 100, 4, 2)),
+        ("CNOT columns, d=4 B=4",
+         k7_inputs(two[0], cnot_env, 4.0, 50, 4, 4)),
+        ("4q demo MC branches, d=16 B=16",
+         k7_inputs(demo.ham, demo.envelope, demo.T, 100, 16, 16)),
+        ("unaligned, d=48 B=5", _unaligned_inputs()),
+        ("10q dense MaxCut state, d=1024 B=1",
+         k7_inputs(ring.ham, ring.envelope, ring.T, 30, 1, 10)),
+        ("10q MC branches, d=1024 B=40",
+         k7_inputs(ring.ham, ring.envelope, ring.T, 30, 40, 40)),
+    ]
+
+
+def phase_dense_kernels():
+    """K7 forward and backward against the plain versions on the card, at
+    the six shapes of dense_kernel_cases. Returns {'k7': (forward,
+    backward) max abs errors} at the 10q state's shape."""
+    import torch
+    from diffquantum_tpu_torch.ops import taylor_apply as ta
+
+    errs, t_phase = {}, time.perf_counter()
+    for label, (h, psi, g, zs, order, sub) in dense_kernel_cases():
+        t0 = time.perf_counter()
+        out = ta._forward_cuda(h.re, h.im, psi.re, psi.im, zs, order, sub)
+        torch.cuda.synchronize()
+        t_k = time.perf_counter() - t0
+        ref = ta.taylor_apply_plain(h, psi, zs, order, sub)
+        got = ta._backward_cuda(h.re, h.im, psi.re, psi.im, g.re, g.im, zs,
+                                order, sub)
+        gh, gp = ta.taylor_apply_backward_plain(h, psi, g, zs, order, sub)
+        torch.cuda.synchronize()
+        fwd, bwd, rels = _check_case(label, "K7", TOL_K7, out, ref, got,
+                                     (gh.re, gh.im, gp.re, gp.im),
+                                     "dH_re, dH_im, dpsi_re, dpsi_im")
+        log(f"kernel check K7 [{label}]: order {order}, {sub} substeps, "
+            f"forward max abs err {fwd!r} (atol {TOL_K7['fwd']}); backward "
+            f"relative errors {rels!r} (bound {TOL_K7['grad']}); first "
+            f"launch + sync {t_k * 1e3:.3f} ms")
+        if label.startswith("10q dense MaxCut state"):
+            errs["k7"] = (fwd, bwd)
+    log(f"kernel check K7: {time.perf_counter() - t_phase:.1f} s with the "
+        f"dense problems' build")
+    return errs
+
+
+def _counted(total, label, want, fn):
+    """fn() with the launch counters set to 0 before and checked after."""
+    zero_counts()
+    out = fn()
+    counts = read_counts()
+    expect_counts(label, counts, want)
+    _add(total, counts)
+    return out
+
+
+def phase_dense_paths(total):
+    """The dense slice through the entry points: the 10q dense ring
+    MaxCut (K7 at d = 1024), the reference demo with MC gradients (K7 on
+    the branches), CNOT gate synthesis (K7 at d = 4), state transfer,
+    Bell and Hadamard-MC control, and VQE H2."""
+    for path in (dense_ring_path, dense_demo_path, dense_control_paths):
+        t0 = time.perf_counter()
+        path(total)
+        log(f"dense: {path.__name__} took {time.perf_counter() - t0:.1f} s")
+
+
+def dense_ring_path(total):
+    """The 10q dense ring MaxCut: the grad step and an MC gradient on K7
+    against 'expm', and 5 epochs of training."""
+    import torch
+    from diffquantum_tpu_torch.dynamics.propagator import (dense_backend,
+                                                           reference_n_steps)
+    from diffquantum_tpu_torch.gradients.adjoint import energy_and_grad
+    from diffquantum_tpu_torch.gradients.mc import mc_energy_grad
+    from diffquantum_tpu_torch.train import TrainConfig, train_energy
+
+    ring = dense_problems()["ring"]
+    n_steps = reference_n_steps(10, 0.0, ring.T)
+    if dense_backend(ring.ham, batched=False) != "apply" or n_steps != 30:
+        fail("the 10q dense ring MaxCut does not route to 'apply' at 30 "
+             "steps")
+    coeff = coeff_12q(ring, seed=10)
+    args = (ring.ham, ring.envelope, ring.measurement)
+    val, grad = _counted(
+        total, "energy_and_grad, 10q dense",
+        {"k7_forward": n_steps, "k7_backward": n_steps},
+        lambda: energy_and_grad(*args, coeff, ring.psi0, ring.T, n_steps))
+    val_e, grad_e = energy_and_grad(*args, coeff, ring.psi0, ring.T, n_steps,
+                                    backend="expm")
+    dv, dg = abs(float(val) - float(val_e)), rel_err(grad, grad_e)
+    log(f"dense: 10q grad step value {float(val)!r} ('expm' "
+        f"{float(val_e)!r}, diff {dv!r}); gradient relative diff {dg!r}")
+    if not (torch.isfinite(grad).all() and dv <= DENSE_VALUE_ATOL
+            and dg <= DENSE_GRAD_REL):
+        fail(f"10q dense grad step on K7 disagrees with 'expm' (value atol "
+             f"{DENSE_VALUE_ATOL}, gradient {DENSE_GRAD_REL} of max-norm)")
+    # the same step in float64 ('expm'; the operators' entries are exact
+    # in float32, so the cast changes nothing but the arithmetic)
+    f64 = torch.float64
+    ham64 = dataclasses.replace(
+        ring.ham, dtype=f64, H0=ring.ham.H0.astype(f64),
+        Hs=ring.ham.Hs.astype(f64))
+    m64 = dataclasses.replace(ring.measurement,
+                              matrix=ring.measurement.matrix.astype(f64))
+    val_d, grad_d = energy_and_grad(ham64, ring.envelope, m64, coeff.to(f64),
+                                    ring.psi0.astype(f64), ring.T, n_steps,
+                                    backend="expm")
+    errs = [(abs(float(v) - float(val_d)), rel_err(g.to(f64), grad_d))
+            for v, g in ((val, grad), (val_e, grad_e))]
+    log(f"dense: against float64 'expm' ({float(val_d)!r}): K7 path value "
+        f"error {errs[0][0]!r}, gradient {errs[0][1]!r}; float32 'expm' "
+        f"{errs[1][0]!r}, {errs[1][1]!r}")
+    if not (errs[0][0] <= DENSE_F64_VALUE_ATOL
+            and errs[0][1] <= DENSE_F64_GRAD_REL):
+        fail(f"10q dense grad step on K7 is off the float64 step (value atol "
+             f"{DENSE_F64_VALUE_ATOL}, gradient {DENSE_F64_GRAD_REL})")
+    s = torch.tensor(0.7, dtype=torch.float64, device=DEVICE)
+    g_k7 = _counted(total, "mc_energy_grad, 10q dense, s = 0.7",
+                    {"k7_forward": 2 * n_steps},
+                    lambda: mc_energy_grad(*args, coeff, ring.psi0, ring.T,
+                                           None, n_steps, s=s))
+    g_ex = mc_energy_grad(*args, coeff, ring.psi0, ring.T, None, n_steps, s=s,
+                          backend="expm")
+    dg = rel_err(g_k7, g_ex)
+    log(f"dense: 10q MC gradient at s = 0.7 (K7 on the state and the 40 "
+        f"branches) against 'expm': relative diff {dg!r}")
+    if not (torch.isfinite(g_k7).all() and dg <= DENSE_GRAD_REL):
+        fail(f"10q dense MC gradient on K7 disagrees with 'expm' ("
+             f"{DENSE_GRAD_REL} of max-norm)")
+    cfg = TrainConfig(n_basis=6, n_epoch=5, lr=2e-2)
+    res = _counted(total, "train_energy adjoint, 10q dense, 5 epochs",
+                   {"k7_forward": 6 * n_steps, "k7_backward": 5 * n_steps},
+                   lambda: train_energy(*args, ring.psi0, ring.T, cfg,
+                                        init_coeff=coeff))
+    losses = res.losses_raw
+    log(f"dense: 10q train_energy 5 epochs, loss {losses[0]!r} -> "
+        f"{losses[-1]!r}, wall {res.wall_s:.3f} s")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail("10q dense train_energy loss did not fall over 5 epochs")
+    _valid_cut(ring, res.final_state, "dense: 10q")
+
+
+def dense_demo_path(total):
+    """The reference demo (4q ring, dense by default) with MC gradients
+    and its defaults reaches the max cut."""
+    from diffquantum_tpu_torch.train import TrainConfig, train_energy
+
+    demo = dense_problems()["demo"]
+    cfg = TrainConfig(n_basis=6, n_epoch=202, lr=2e-2, grad_mode="mc")
+    res = _counted(total, "train_energy MC, 4q demo, 202 epochs",
+                   {"k7_forward": cfg.n_epoch * cfg.n_step},
+                   lambda: train_energy(demo.ham, demo.envelope,
+                                        demo.measurement, demo.psi0, demo.T,
+                                        cfg))
+    state, cut = _valid_cut(demo, res.final_state, "dense: 4q demo MC")
+    log(f"dense: 4q demo MC 202 epochs, loss {res.losses_raw[0]!r} -> "
+        f"{res.losses_raw[-1]!r}, gap {res.losses_energy[-1]!r}, wall "
+        f"{res.wall_s:.3f} s")
+    if cut != demo.max_cut or state not in (0b0101, 0b1010):
+        fail(f"the 4q demo with MC gradients read out {state:04b} (cut "
+             f"{cut}), not the max cut 0101/1010")
+
+
+def dense_control_paths(total):
+    """CNOT gate synthesis, state transfer, Bell, Hadamard with MC, VQE
+    H2."""
+    import torch
+    from diffquantum_tpu_torch.dynamics.propagator import reference_n_steps
+    from diffquantum_tpu_torch.ops import cpx
+    from diffquantum_tpu_torch.pulses.envelope import SimpleEnvelope
+    from diffquantum_tpu_torch.train import (TrainConfig, gate_infidelity,
+                                             train_energy, train_fidelity,
+                                             train_gate)
+
+    p = dense_problems()
+    # CNOT gate synthesis (demos/demo_control.py::run_gate)
+    ham, omegas = p["two"]
+    env = SimpleEnvelope(basis="bspline", n_basis=6, omegas=omegas)
+    cfg = TrainConfig(n_basis=6, n_epoch=200, lr=0.1)
+    g_steps = reference_n_steps(cfg.per_step, 0.0, 4.0)
+    res = _counted(total, "train_gate CNOT, 200 epochs",
+                   {"k7_forward": (cfg.n_epoch + 1) * g_steps,
+                    "k7_backward": cfg.n_epoch * g_steps},
+                   lambda: train_gate(ham, env, CNOT, 4.0, cfg))
+    U = cpx.to_complex(res.final_state).T
+    tr = np.trace(CNOT.conj().T @ U)
+    dev = float(np.abs(U - tr / abs(tr) * CNOT).max())
+    log(f"dense: CNOT train_gate 200 epochs, coherent infidelity "
+        f"{res.losses_raw[0]!r} -> {res.losses_raw[-1]!r}, max |U - e^(i "
+        f"phi) G| {dev!r}, wall {res.wall_s:.3f} s")
+    if not (np.all(np.isfinite(res.losses_raw))
+            and res.losses_raw[-1] < res.losses_raw[0]):
+        fail("CNOT train_gate loss did not fall")
+    gate_dag = cpx.from_complex(CNOT.conj().T, device=DEVICE)
+    cols = cpx.eye(4, device=DEVICE)
+    vals = []  # at a random start, away from the optimum's cancellation
+    start = torch.tensor(np.random.default_rng(4).standard_normal(
+        env.coeff_shape), dtype=torch.float32, device=DEVICE)
+    for backend in ("apply", "expm"):
+        c = start.clone().requires_grad_(True)
+        v = gate_infidelity(ham, env, c, gate_dag, cols, 4.0, g_steps,
+                            backend=backend)
+        vals.append((float(v.detach()), torch.autograd.grad(v, c)[0]))
+    dv, dg = abs(vals[0][0] - vals[1][0]), rel_err(vals[0][1], vals[1][1])
+    log(f"dense: gate_infidelity 'apply' (K7) {vals[0][0]!r} against "
+        f"'expm' {vals[1][0]!r}: diff {dv!r}, gradient relative diff {dg!r}")
+    if not (dv <= DENSE_VALUE_ATOL and dg <= DENSE_GRAD_REL):
+        fail("gate_infidelity on K7 disagrees with 'expm'")
+
+    # state transfer and Bell (adjoint); Hadamard with MC
+    for name, epochs, mode in (("transfer", 100, "adjoint"),
+                               ("bell", 100, "adjoint"),
+                               ("hadamard", 100, "mc")):
+        prob = p[name]
+        cfg = TrainConfig(n_basis=6, n_epoch=epochs, lr=0.1, grad_mode=mode)
+        n_pairs = prob.initial_states.shape[0]
+        steps = reference_n_steps(cfg.per_step, 0.0, prob.T)
+        # the final states evolve as one batch of pairs ('apply'); MC adds
+        # the branches of every pair and epoch (the single states of the
+        # losses and the adjoint run 'expm')
+        branches = epochs * n_pairs * cfg.n_step if mode == "mc" else 0
+        want = {"k7_forward": steps + branches}
+        res = _counted(total,
+                       f"train_fidelity {mode}, {name}, {epochs} epochs",
+                       want, lambda: train_fidelity(
+                           prob.ham, prob.envelope, prob.initial_states,
+                           prob.target_states, prob.T, cfg))
+        fids = np.abs(np.sum(np.conj(cpx.to_complex(prob.target_states))
+                             * cpx.to_complex(res.final_state), axis=-1)) ** 2
+        log(f"dense: {name} train_fidelity ({mode}) {epochs} epochs, loss "
+            f"{res.losses_raw[0]!r} -> {res.losses_raw[-1]!r}, final "
+            f"fidelities {fids.tolist()!r}")
+        if not (np.all(np.isfinite(res.losses_raw))
+                and res.losses_raw[-1] < res.losses_raw[0]):
+            fail(f"{name} train_fidelity loss did not fall")
+
+    # VQE H2, adjoint
+    h2 = p["h2"]
+    cfg = TrainConfig(n_basis=6, n_epoch=250, lr=0.1)
+    res = _counted(total, "train_energy adjoint, H2, 250 epochs", {},
+                   lambda: train_energy(h2.ham, h2.envelope, h2.measurement,
+                                        h2.psi0, h2.T, cfg))
+    err = (res.losses_raw[-1] - h2.exact_ground_energy) * 1e3
+    log(f"dense: H2 VQE 250 epochs, energy {res.losses_raw[0]!r} -> "
+        f"{res.losses_raw[-1]!r} Ha, exact {h2.exact_ground_energy!r}, "
+        f"error {err!r} mHa")
+    if not (np.isfinite(err) and res.losses_raw[-1] < res.losses_raw[0]):
+        fail("H2 VQE energy did not fall")
+
+
+def phase_dense_times():
+    """K7 at d = 1024 (B = 1 and 40) beside its plain version, its bound
+    and matrix_exp + one product; the 10q dense grad step (and its H(t)
+    build), a CNOT train_gate epoch and a 4q demo MC epoch. Returns
+    {kernel: (ms, plain_ms, bound_ms, bound_by, library_ms)} at B = 1."""
+    import torch
+    from diffquantum_tpu_torch.gradients.adjoint import energy_and_grad
+    from diffquantum_tpu_torch.ops import taylor_apply as ta
+    from diffquantum_tpu_torch.pulses.envelope import SimpleEnvelope
+    from diffquantum_tpu_torch.train import TrainConfig, train_energy
+    from diffquantum_tpu_torch.train import train_gate
+
+    p = dense_problems()
+    ring = p["ring"]
+    out, t_phase = {}, time.perf_counter()
+    for b in (1, 40):
+        h, psi, g, zs, order, sub = k7_inputs(ring.ham, ring.envelope,
+                                              ring.T, 30, b, 100 + b)
+        o_re, o_im = ta._forward_cuda(h.re, h.im, psi.re, psi.im, zs, order,
+                                      sub)
+        # the library yardstick: exp(z H) to rounding, then one product;
+        # for the backward, that route's VJP in dH and dpsi by autograd
+        zc = complex(float(zs[0]), float(zs[1])) * sub
+        hc = torch.complex(h.re, h.im).requires_grad_(True)
+        pc = torch.complex(psi.re, psi.im).requires_grad_(True)
+        gc = torch.complex(g.re, g.im)
+        lib = {"forward": lambda: pc @ torch.linalg.matrix_exp(zc * hc).T,
+               "backward": lambda: torch.autograd.grad(
+                   pc @ torch.linalg.matrix_exp(zc * hc).T, (hc, pc), gc)}
+        lib_ms = {k: cuda_ms(f, 10, 2) for k, f in lib.items()}
+        runs = {
+            "forward": (lambda: ta._forward_cuda(h.re, h.im, psi.re, psi.im,
+                                                 zs, order, sub),
+                        lambda: ta.taylor_apply_plain(h, psi, zs, order,
+                                                      sub)),
+            "backward": (lambda: ta._backward_cuda(h.re, h.im, psi.re, psi.im,
+                                                   g.re, g.im, zs, order,
+                                                   sub),
+                         lambda: ta.taylor_apply_backward_plain(
+                             h, psi, g, zs, order, sub)),
+        }
+        for part, (kfn, pfn) in runs.items():
+            ms = cuda_ms(kfn, 20, 2)
+            plain_ms = cuda_ms(pfn, 3, 1)
+            bound = taylor_bound(1024, b, order, sub, part == "backward")
+            what = "matrix_exp + product" + (
+                ", forward and VJP" if part == "backward" else "")
+            log(f"time: k7_{part} {ms!r} ms/launch, plain version "
+                f"{plain_ms!r} ms, bound {bound[0]!r} ms ({bound[1]}), "
+                f"{what} {lib_ms[part]!r} ms (d=1024, B={b}, order "
+                f"{order}, {sub} substeps)")
+            if b == 1:
+                out[f"k7_{part}"] = (ms, plain_ms) + bound + (lib_ms[part],)
+        del o_re, o_im
+
+    coeff = coeff_12q(ring, seed=10)
+    args = (ring.ham, ring.envelope, ring.measurement, coeff, ring.psi0,
+            ring.T, 30)
+    ms = cuda_ms(lambda: energy_and_grad(*args), 5, 1)
+    ms_x = cuda_ms(lambda: energy_and_grad(*args, backend="expm"), 3, 1)
+    u = ring.envelope.amplitudes(coeff, torch.arange(30, dtype=torch.float64,
+                                                     device=DEVICE) * (
+                                                         ring.T / 30),
+                                 ring.T)
+    h_ms = cuda_ms(lambda: ring.ham.at(u.transpose(-1, -2)), 10, 2)
+    bound = sum(taylor_bound(1024, 1, 8, 8, bw)[0] for bw in (False, True))
+    log(f"time: 10q dense grad step {ms!r} ms ('apply', K7; 'expm' "
+        f"{ms_x!r} ms), of which the H(t) build for the 30 steps {h_ms!r} "
+        f"ms; K7 bound of the step {30 * bound!r} ms")
+    two_ham, omegas = p["two"]
+    env = SimpleEnvelope(basis="bspline", n_basis=6, omegas=omegas)
+    ms = cuda_ms(lambda: train_gate(two_ham, env, CNOT, 4.0,
+                                    TrainConfig(n_basis=6, n_epoch=20,
+                                                lr=0.1)), 1, 1) / 20
+    log(f"time: CNOT train_gate epoch {ms!r} ms (20 epochs in one call, "
+        f"with the final evolution; 50 K7 forward and 50 backward launches "
+        f"at d=4, B=4 per epoch)")
+    demo = p["demo"]
+    ms = cuda_ms(lambda: train_energy(
+        demo.ham, demo.envelope, demo.measurement, demo.psi0, demo.T,
+        TrainConfig(n_basis=6, n_epoch=10, lr=2e-2, grad_mode="mc")),
+        1, 1) / 10
+    log(f"time: 4q demo MC epoch {ms!r} ms (10 epochs in one call; 100 K7 "
+        f"launches at d=16, B=16 per epoch)")
+    log(f"time: the dense times took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     try:
         import torch
@@ -1703,6 +2168,7 @@ def main():
     errs = phase_kernels()
     errs.update(phase_packed_kernels())
     errs.update(phase_hop_kernels())
+    errs.update(phase_dense_kernels())
     launches = {k: 0 for k in COUNTERS}
     phase_main_path(launches)
     phase_seeds(launches)
@@ -1710,6 +2176,7 @@ def main():
     phase_fd(launches)
     phase_frontier(launches)
     phase_hop_paths(launches)
+    phase_dense_paths(launches)
     log(f"launches over all paths: {launches}")
     for name, n in launches.items():
         if n <= 0:
@@ -1717,10 +2184,13 @@ def main():
     times = phase_times()
     times.update(phase_frontier_times())
     times.update(phase_hop_times())
+    times.update(phase_dense_times())
 
     # kernel -> (source, TPU kernel it replaces)
     k12 = "diffquantum_tpu_torch/csrc/fused_product.cu"
     pk = "diffquantum_tpu_torch/csrc/packed_phase.cu"
+    k7 = "diffquantum_tpu_torch/csrc/taylor_apply.cu"
+    fk = "diffquantum_tpu/ops/pallas_kernels.py"
     fp, fc, fh = "diffquantum_tpu/ops/fused_product.py", \
         "diffquantum_tpu/ops/fused_chunked.py", \
         "diffquantum_tpu/ops/fused_mega_hop.py"
@@ -1733,10 +2203,14 @@ def main():
                 "k5_forward": (pk, f"{fc}:695"),
                 "k5_backward": (pk, f"{fc}:766"),
                 "k6_forward": (pk, f"{fh}:612"),
-                "k6_backward": (pk, f"{fh}:685")}
+                "k6_backward": (pk, f"{fh}:685"),
+                "k7_forward": (k7, f"{fk}:40"),
+                "k7_backward": (k7, f"{fk}:40")}
     kernels = []
     for name, (source, line) in replaces.items():
-        ms, plain_ms, bound_ms, bound_by = times[name]
+        # no single PyTorch call computes a chain; K7's yardstick is
+        # matrix_exp of the generator and one product
+        ms, plain_ms, bound_ms, bound_by, *library = times[name] + (None,)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": line,
@@ -1744,7 +2218,7 @@ def main():
             "max_abs_err": errs[name[:2]][name.endswith("backward")],
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None,  # no single PyTorch call computes a chain
+            "library_ms": library[0],
         })
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -1,11 +1,14 @@
 """Controlled-Hamiltonian container H(t) = H0 + sum_k u_k(t) H_k — the
-port of :mod:`diffquantum_tpu.dynamics.hamiltonian`, structured form only.
+port of :mod:`diffquantum_tpu.dynamics.hamiltonian`.
 
-A structured Hamiltonian stores metadata, not operators: each control
-term is a diagonal, a single-qubit 2x2 local or a hop pair
-(:class:`TermStructure`). That is all the product-formula engines need.
-Dense construction (``create``) and ``detect_structure`` come with the
-dense backends (ROADMAP.md, Queue 1 items 12 and 13).
+Two forms. A structured Hamiltonian (:meth:`ControlledHamiltonian.
+create_structured`) stores metadata, not operators: each control term is
+a diagonal, a single-qubit 2x2 local or a hop pair
+(:class:`TermStructure`), which is all the product-formula engines need.
+A dense one (:meth:`ControlledHamiltonian.create`) holds H0 [d, d] and
+the stacked controls Hs [n_controls, d, d] as CP planes on its device,
+for the dense propagator backends ('expm', 'apply'); it may carry
+structure tags too, given or found by :func:`detect_structure`.
 """
 from __future__ import annotations
 
@@ -14,6 +17,10 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+from ..ops import cpx
+from ..ops.cpx import CP
+from ..utils.device import resolve_device
 
 
 def spectral_norm_bound(m: np.ndarray) -> float:
@@ -35,6 +42,7 @@ class TermStructure:
       - '1q'  : single-qubit operator ``local`` (2x2 complex) on ``qubit``
                 (0 = MSB in the kron ordering).
       - 'hop' : ``X_i X_j + Y_i Y_j`` on sites (``qubit``, ``qubit2``).
+      - 'dense': no structure (only :func:`classify_operator` returns it).
     """
 
     kind: str
@@ -44,27 +52,82 @@ class TermStructure:
     qubit2: int = -1
 
 
+def classify_operator(m: np.ndarray, tol: float = 1e-10) -> TermStructure:
+    """Classify one dense operator as 'diag', '1q' (I x..x G x..x I) or
+    'dense' (host numpy, once at construction)."""
+    m = np.asarray(m, dtype=np.complex128)
+    d = m.shape[0]
+    if np.max(np.abs(m - np.diag(np.diagonal(m)))) <= tol \
+            and np.max(np.abs(np.diagonal(m).imag)) <= tol:
+        return TermStructure(kind="diag", diag=np.real(np.diagonal(m)).copy())
+    n = int(round(np.log2(d)))
+    if 2**n == d:
+        for q in range(n):
+            left, right = 2**q, 2 ** (n - q - 1)
+            g = m.reshape(left, 2, right, left, 2, right)[0, :, 0, 0, :, 0]
+            if np.allclose(m, np.kron(np.eye(left),
+                                      np.kron(g, np.eye(right))), atol=tol):
+                return TermStructure(kind="1q", qubit=q, local=g.copy())
+    return TermStructure(kind="dense")
+
+
+def detect_structure(H0, Hs, tol: float = 1e-10):
+    """(structure, h0_structure) tags for dense inputs, or (None, None)
+    when some term is neither diagonal nor single-qubit or H0 is not
+    diagonal (no partial tags)."""
+    h0 = classify_operator(H0, tol)
+    if h0.kind != "diag":
+        return None, None
+    tags = tuple(classify_operator(h, tol) for h in Hs)
+    if any(t.kind == "dense" for t in tags):
+        return None, None
+    return tags, h0
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class ControlledHamiltonian:
-    """Structure-only H(t) with static norm metadata. ``dtype`` is the real
-    dtype states evolve in. Host-side analysis results (the term split,
-    the routing decision) and device tables are memoized per instance in
-    ``_memo``."""
+    """H(t) with static norm metadata: structure-only (``H0``/``Hs`` None)
+    or dense (``H0`` CP [d, d], ``Hs`` CP [n_controls, d, d] on the
+    device, ``structure`` optional). ``dtype`` is the real dtype states
+    evolve in. Host-side analysis results (the term split, the routing
+    decision) and device tables are memoized per instance in ``_memo``."""
 
     h0_norm: float
     hs_norms: tuple[float, ...]
-    structure: tuple[TermStructure, ...]
-    h0_structure: TermStructure
+    structure: Optional[tuple[TermStructure, ...]]
+    h0_structure: Optional[TermStructure]
     n_qubits: int
     dtype: torch.dtype = torch.float32
+    H0: Optional[CP] = None
+    Hs: Optional[CP] = None
     _memo: dict = dataclasses.field(default_factory=dict, init=False,
                                     repr=False)
 
     @classmethod
-    def create(cls, *args, **kw):
-        raise NotImplementedError(
-            "dense ControlledHamiltonian.create is not ported yet "
-            "(ROADMAP.md, Queue 1 item 12); use create_structured")
+    def create(cls, H0, Hs: Sequence, dtype=torch.float32,
+               structure: Optional[Sequence[TermStructure]] = None,
+               h0_structure: Optional[TermStructure] = None,
+               auto_structure: bool = False,
+               device="cuda") -> "ControlledHamiltonian":
+        """Dense H0 and controls from host (complex) numpy operators, on
+        ``device``. ``dtype`` is the real storage dtype;
+        ``auto_structure=True`` runs :func:`detect_structure` when no
+        tags are given."""
+        dev = resolve_device(device)
+        H0_np = np.asarray(H0, dtype=np.complex128)
+        Hs_np = np.stack([np.asarray(h, dtype=np.complex128) for h in Hs]) \
+            if len(Hs) else np.zeros((0,) + H0_np.shape, dtype=np.complex128)
+        if auto_structure and structure is None:
+            structure, h0_structure = detect_structure(H0_np, Hs_np)
+        d = H0_np.shape[0]
+        n_qubits = int(round(np.log2(d))) if d & (d - 1) == 0 else -1
+        return cls(
+            h0_norm=spectral_norm_bound(H0_np),
+            hs_norms=tuple(spectral_norm_bound(h) for h in Hs_np),
+            structure=tuple(structure) if structure is not None else None,
+            h0_structure=h0_structure, n_qubits=n_qubits, dtype=dtype,
+            H0=cpx.from_complex(H0_np, dtype=dtype, device=dev),
+            Hs=cpx.from_complex(Hs_np, dtype=dtype, device=dev))
 
     @classmethod
     def create_structured(cls, dim: int,
@@ -94,11 +157,13 @@ class ControlledHamiltonian:
 
     @property
     def is_structured_only(self) -> bool:
-        return True
+        return self.H0 is None
 
     @property
     def dim(self) -> int:
-        return 2**self.n_qubits
+        if self.is_structured_only:
+            return 2**self.n_qubits
+        return self.H0.shape[-1]
 
     @property
     def n_controls(self) -> int:
@@ -108,3 +173,16 @@ class ControlledHamiltonian:
         """Static bound on ||H(t)|| given per-control amplitude bounds."""
         return self.h0_norm + float(
             sum(abs(u) * n for u, n in zip(u_max, self.hs_norms)))
+
+    def at(self, u_t: torch.Tensor) -> CP:
+        """Dense H(t) = H0 + sum_k u_k H_k for amplitudes u_t [...,
+        n_controls] (one product with the [n_controls, d*d] stack, so a
+        whole time grid [T, n_controls] reads Hs once): CP [..., d, d]."""
+        if self.is_structured_only:
+            raise ValueError("at() needs dense operators; this "
+                             "ControlledHamiltonian is structure-only")
+        if self.n_controls == 0:
+            shape = tuple(u_t.shape[:-1]) + tuple(self.H0.shape)
+            return CP(self.H0.re.expand(shape), self.H0.im.expand(shape))
+        mix = cpx.tensordot_weights(u_t.to(self.dtype), self.Hs)
+        return cpx.add(self.H0, mix)

@@ -9,8 +9,10 @@ evolutions and measurements only. Per sample:
 2. the envelope sensitivity ``dD_k(s)/dc_kj`` of
    ``D_k = (2 sigmoid(A_k) - 1) omega_k``;
 3. evolve ``phi = U(s, 0) psi0``;
-4. apply the non-unitary gates ``(I ± r i H_k)/sqrt(1+r^2)``, r = 1/2,
-   matrix-free (:func:`..dynamics.product.apply_structured_terms`);
+4. apply the non-unitary gates ``(I ± r i H_k)/sqrt(1+r^2)``, r = 1/2:
+   matrix-free on a structured Hamiltonian
+   (:func:`..dynamics.product.apply_structured_terms`), one product of
+   the dense stack Hs [n_c, d, d] with phi on a dense one;
 5. evolve the 2 n_Hs branches from s to T and measure ``<M>``;
 6. ``ps_k = sign * (1+r^2)/(2r) * (ps_m - ps_p)``;
 7. chain rule ``grad[k, j] = ps_k * dD_k/dc_kj``.
@@ -31,7 +33,10 @@ whose phase and angle tables have one row per sample
 On the card that is one K2 launch per leg; a single sample evolves its
 first leg on K1. The split times are drawn on the state's device from a
 ``torch.Generator`` and never copied to the host. Random streams differ
-from ``jax.random``: the tests inject ``s``.
+from ``jax.random``: the tests inject ``s``. On a dense Hamiltonian the
+legs run the dense backends: leg 1 of one state on 'expm' below
+d = 512, the branches on 'apply' (K7 on the card), per-sample grids as
+groups of members (:func:`..dynamics.propagator.evolve`).
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ import torch
 from ..dynamics.product import apply_structured_terms
 from ..dynamics.propagator import evolve
 from ..measure import Measurement, measure
+from ..ops import cpx
 from ..ops.cpx import CP
 from ..pulses.basis import basis_matrix
 
@@ -159,7 +165,10 @@ def mc_grads_per_sample(ham, envelope, measurement: Measurement, coeff,
     phi = evolve(ham, envelope, coeff, psi0, 0.0, s, **kw)
 
     # perturbation gates phi ± r i (H_k phi), i (a + ib) = -b + ia
-    h_re, h_im = apply_structured_terms(ham, phi)          # [n_hs, ..., d]
+    if ham.is_structured_only:
+        h_re, h_im = apply_structured_terms(ham, phi)      # [n_hs, ..., d]
+    else:  # one product of the dense stack with phi (plain torch.matmul)
+        h_re, h_im = cpx.matvec(ham.Hs, phi)               # [n_hs, ..., d]
     h_re, h_im = h_re.movedim(0, -2), h_im.movedim(0, -2)  # [..., n_hs, d]
     p_re, p_im = phi.re[..., None, :], phi.im[..., None, :]
     scale = 1.0 / (1.0 + r * r) ** 0.5

@@ -1,16 +1,20 @@
-"""Measurement objectives — the port of the diagonal part of
-:mod:`diffquantum_tpu.measure`.
+"""Measurement objectives — the port of :mod:`diffquantum_tpu.measure`:
+dense operators, diagonal observables and rank-1 targets.
 
-A diagonal observable (any cut or Ising cost) needs no operator: its
-expectation is ``sum_j |psi_j|^2 diag_j``. Shot-sampled measurement draws
-computational-basis outcomes from |psi|^2 per term
-(:func:`stochastic_measure_diag`), and noisy measurement adds the
-reference's Gaussian noise of scale |value|/5
-(:func:`measurement_noise`); both draw from an explicit
+- a dense Hermitian M (CP [d, d]): ``Re <psi|M|psi>``
+  (:func:`exact_expectation`), shot-sampled per weighted term in each
+  term's eigenbasis (:class:`PauliTermSet`, :func:`stochastic_measure`);
+- a diagonal observable (any cut or Ising cost) needs no operator:
+  ``sum_j |psi_j|^2 diag_j``, sampled by computational-basis draws per
+  term (:func:`stochastic_measure_diag`);
+- a rank-1 target ``|t><t|`` (the fidelity objective): ``|<t|psi>|^2``,
+  sampled as Bernoulli trials (:func:`sampled_target_prob`).
+
+Noisy measurement adds the reference's Gaussian noise of scale |value|/5
+(:func:`measurement_noise`). Every draw comes from an explicit
 ``torch.Generator`` where the JAX package takes a PRNG key, so the two
-packages agree in distribution, not draw by draw. Dense operators,
-rank-1 targets and Pauli-string sums wait for slice 3 (ROADMAP.md,
-Queue 1 item 13); their constructors raise.
+packages agree in distribution, not draw by draw. Pauli-string sums
+(``create_strings``) wait for ROADMAP.md, Queue 1 item 13, and raise.
 """
 from __future__ import annotations
 
@@ -26,8 +30,89 @@ from .utils.device import resolve_device
 
 NOISE_REL_SCALE = 0.2  # reference: np.random.normal(scale=|v|/5)
 
-_UNPORTED_MSG = ("dense, target and Pauli-string measurement objectives "
-                 "are not ported yet (ROADMAP.md, Queue 1 item 13)")
+_UNPORTED_MSG = ("Pauli-string measurement objectives (create_strings, "
+                 "PauliStringSet) are not ported yet (ROADMAP.md, Queue 1 "
+                 "item 13)")
+
+
+def exact_expectation(m: CP, psi: CP) -> torch.Tensor:
+    """Re <psi|M|psi> for a dense M [d, d] (psi may carry batch dims)."""
+    mp = cpx.matvec(m, psi)
+    return torch.sum(psi.re * mp.re + psi.im * mp.im, dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class PauliTermSet:
+    """A measurement operator as weighted Hermitian terms with their
+    eigensystems: weights [n_terms], evals [n_terms, d], estates CP
+    [n_terms, d, d] (eigenvectors as columns)."""
+
+    weights: torch.Tensor
+    evals: torch.Tensor
+    estates: CP
+
+    @classmethod
+    def create(cls, terms: Sequence[tuple[np.ndarray, float]],
+               dtype=torch.float32, device="cuda") -> "PauliTermSet":
+        """From (matrix, weight) pairs; one host eigendecomposition per
+        term."""
+        dev = resolve_device(device)
+        ws, evs, ests = [], [], []
+        for m, w in terms:
+            ev, es = np.linalg.eigh(np.asarray(m))
+            ws.append(float(w))
+            evs.append(ev)
+            ests.append(es)
+        return cls(weights=torch.tensor(ws, dtype=dtype, device=dev),
+                   evals=torch.as_tensor(np.stack(evs), dtype=dtype,
+                                         device=dev),
+                   estates=cpx.from_complex(np.stack(ests), dtype=dtype,
+                                            device=dev))
+
+    @property
+    def n_terms(self) -> int:
+        return self.weights.shape[0]
+
+
+def stochastic_measure(terms: PauliTermSet, psi: CP,
+                       generator: torch.Generator,
+                       per_pauli: int = 100) -> torch.Tensor:
+    """Finite-shot estimate of sum_t w_t <psi|P_t|psi>: per term, the Born
+    distribution over its eigenstates |<e_j|psi>|^2, ``per_pauli`` draws
+    (``torch.multinomial`` with replacement, where the JAX package draws
+    ``jax.random.categorical``) and ``w_t mean(eval_t[draws])``. psi [d]
+    gives a scalar, [..., d] one estimate per state."""
+    er = terms.estates.re.transpose(-1, -2)          # [t, j, d]
+    ei = terms.estates.im.transpose(-1, -2)
+    amp_re = torch.einsum("tjd,...d->...tj", er, psi.re) \
+        + torch.einsum("tjd,...d->...tj", ei, psi.im)
+    amp_im = torch.einsum("tjd,...d->...tj", er, psi.im) \
+        - torch.einsum("tjd,...d->...tj", ei, psi.re)
+    probs = amp_re * amp_re + amp_im * amp_im        # [..., t, d]
+    lead, (n_terms, d) = probs.shape[:-2], probs.shape[-2:]
+    draws = torch.multinomial(probs.reshape(-1, d), per_pauli,
+                              replacement=True, generator=generator)
+    draws = draws.reshape(-1, n_terms, per_pauli)
+    vals = torch.gather(terms.evals.expand(draws.shape[0], n_terms, d), -1,
+                        draws)
+    est = torch.sum(terms.weights * vals.mean(dim=-1), dim=-1)
+    return est.reshape(lead)
+
+
+def target_overlap_prob(target: CP, psi: CP) -> torch.Tensor:
+    """|<t|psi>|^2 (psi may carry batch dims): the rank-1 projector's
+    expectation, matrix-free."""
+    return cpx.abs2(cpx.vdot(target, psi))
+
+
+def sampled_target_prob(target: CP, psi: CP, generator: torch.Generator,
+                        shots: int = 100) -> torch.Tensor:
+    """Finite-shot estimate of |<t|psi>|^2: ``shots`` Bernoulli trials
+    with success probability p, the frequency."""
+    p = torch.clamp(target_overlap_prob(target, psi), 0.0, 1.0)
+    u = torch.rand((shots,) + tuple(p.shape), generator=generator,
+                   dtype=p.dtype, device=p.device)
+    return torch.mean((u < p).to(p.dtype), dim=0)
 
 
 def diag_expectation(diag: torch.Tensor, psi: CP) -> torch.Tensor:
@@ -91,24 +176,42 @@ def measurement_noise(value: torch.Tensor, generator: torch.Generator,
 
 @dataclasses.dataclass(frozen=True)
 class Measurement:
-    """A diagonal measurement objective with the reference's sampling and
-    noise switches (`sim_plain.py:30-31`). ``terms`` is the optional
-    decomposition that sampled measurement reads; without it the diagonal
-    is sampled as one term."""
+    """A measurement objective — a dense operator (``matrix``), a
+    diagonal (``diag``) or a rank-1 target (``target``) — with the
+    reference's sampling and noise switches (`sim_plain.py:30-31`).
+    ``terms`` is the decomposition that sampled measurement reads (a
+    :class:`PauliTermSet` for a dense operator, a
+    :class:`DiagonalTermSet` for a diagonal; without one a diagonal is
+    sampled as one term)."""
 
-    diag: torch.Tensor
-    terms: Optional[DiagonalTermSet] = None
+    diag: Optional[torch.Tensor] = None
+    terms: Optional[object] = None
     sampling: bool = False
     noisy: bool = False
     per_pauli: int = 100
+    matrix: Optional[CP] = None
+    target: Optional[CP] = None
 
     @classmethod
-    def create(cls, *args, **kw):
-        raise NotImplementedError(_UNPORTED_MSG)
+    def create(cls, matrix, terms=None, dtype=torch.float32, device="cuda",
+               **kw) -> "Measurement":
+        """From a host complex operator [d, d], with an optional
+        (matrix, weight) term list for sampled measurement."""
+        dev = resolve_device(device)
+        term_set = PauliTermSet.create(terms, dtype=dtype, device=dev) \
+            if terms else None
+        return cls(matrix=cpx.from_complex(np.asarray(matrix), dtype=dtype,
+                                           device=dev), terms=term_set, **kw)
 
     @classmethod
-    def create_target(cls, *args, **kw):
-        raise NotImplementedError(_UNPORTED_MSG)
+    def create_target(cls, target, dtype=torch.float32, device="cuda",
+                      **kw) -> "Measurement":
+        """Matrix-free rank-1 projector M = |t><t| from a target state:
+        ``target`` a host complex [d] array or a CP pair (kept as it
+        is)."""
+        t = target if isinstance(target, CP) else cpx.from_complex(
+            np.asarray(target), dtype=dtype, device=resolve_device(device))
+        return cls(target=t, **kw)
 
     @classmethod
     def create_strings(cls, *args, **kw):
@@ -137,21 +240,34 @@ class Measurement:
 
 def measure(m: Measurement, psi: CP, generator, sampling: bool,
             noisy: bool, per_pauli: int = 100) -> torch.Tensor:
-    """<psi|M|psi> of a diagonal measurement, shot-sampled and/or with
-    Gaussian noise as asked (the flags of the caller, as the JAX
-    package's estimators pass their own)."""
+    """<psi|M|psi>, shot-sampled and/or with Gaussian noise as asked (the
+    flags of the caller, as the JAX package's estimators pass their
+    own)."""
     if (sampling or noisy) and generator is None:
         raise ValueError("sampled or noisy measurement needs a "
                          "torch.Generator")
     if sampling:
-        terms = m.terms
-        if terms is None:  # sample the diagonal as ONE term
-            terms = DiagonalTermSet(weights=torch.ones(
-                (1,), dtype=m.diag.dtype, device=m.diag.device),
-                diags=m.diag[None, :])
-        val = stochastic_measure_diag(terms, psi, generator, per_pauli)
-    else:
+        if m.target is not None:
+            val = sampled_target_prob(m.target, psi, generator, per_pauli)
+        elif isinstance(m.terms, PauliTermSet):
+            val = stochastic_measure(m.terms, psi, generator, per_pauli)
+        elif m.terms is not None or m.diag is not None:
+            terms = m.terms
+            if terms is None:  # sample the diagonal as ONE term
+                terms = DiagonalTermSet(weights=torch.ones(
+                    (1,), dtype=m.diag.dtype, device=m.diag.device),
+                    diags=m.diag[None, :])
+            val = stochastic_measure_diag(terms, psi, generator, per_pauli)
+        else:
+            raise ValueError(
+                "sampling measurement needs a term decomposition: pass "
+                "terms=/diag_terms= at construction (or use create_target)")
+    elif m.diag is not None:
         val = diag_expectation(m.diag, psi)
+    elif m.target is not None:
+        val = target_overlap_prob(m.target, psi)
+    else:
+        val = exact_expectation(m.matrix, psi)
     if noisy:
         val = measurement_noise(val, generator)
     return val

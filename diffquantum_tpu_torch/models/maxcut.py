@@ -1,5 +1,5 @@
 """Pulse-level QAOA MaxCut problem family — the port of
-:mod:`diffquantum_tpu.models.maxcut`, structured form.
+:mod:`diffquantum_tpu.models.maxcut`.
 
 - drift H0 = 0;
 - one ZZ control per edge (strength omega0) and one X control per qubit
@@ -8,9 +8,11 @@
 - horizon ``T = pi (1/omega0 + 1/omega1) n_layers``;
 - uniform-superposition initial state.
 
-Only the matrix-free form is ported: the JAX package's ``dense=None``
-picks dense operators up to 8 qubits, which wait for the dense backends
-(ROADMAP.md, Queue 1 item 12), so here ``dense`` defaults to False.
+``dense=None`` picks dense operators up to 8 qubits and the matrix-free
+structured form beyond, as the JAX package does: the reference's own
+4-qubit demo instance then evolves on the dense backends. The dense
+problem carries the structure tags too, and its measurement is the
+dense cost operator with the Pauli term table of sampled measurement.
 """
 from __future__ import annotations
 
@@ -74,16 +76,16 @@ def build_maxcut(n_qubits: int, graph: Sequence[Sequence[int]],
                  omega0: float = np.pi, omega1: float = np.pi,
                  n_layers: int = 1, dtype=torch.float32,
                  sampling: bool = False, noisy: bool = False,
-                 dense: bool = False, device="cuda") -> MaxCutProblem:
-    """The structured MaxCut problem on ``device`` (psi0 and the cost
-    diagonal live there; the Hamiltonian is host metadata)."""
-    if dense:
-        raise NotImplementedError(
-            "dense MaxCut operators are not ported yet (ROADMAP.md, "
-            "Queue 1 item 12); use dense=False")
+                 dense: bool | None = None, device="cuda") -> MaxCutProblem:
+    """The MaxCut problem on ``device``. ``dense=None`` auto-selects:
+    dense operators up to 8 qubits, the structured form (host metadata,
+    psi0 and the cost diagonal on the device) beyond. ``dense=True``
+    builds the dense operators at any size (O(n_edges 4^n) memory)."""
     dev = resolve_device(device)
     graph = [tuple(e) for e in graph]
     d = 2**n_qubits
+    if dense is None:
+        dense = n_qubits <= 8
 
     cost_diag = np.zeros(d)
     for (i, j) in graph:
@@ -99,16 +101,30 @@ def build_maxcut(n_qubits: int, graph: Sequence[Sequence[int]],
         structure.append(TermStructure(kind="1q", qubit=q, local=linalg.X))
 
     env = SimpleEnvelope(basis=basis, n_basis=n_basis, omegas=tuple(omegas))
-    ham = ControlledHamiltonian.create_structured(
-        d, structure, h0_structure=TermStructure(kind="diag",
-                                                 diag=np.zeros(d)),
-        dtype=dtype)
-    diag_terms = [(linalg.zz_diagonal(n_qubits, i, j), 0.5)
-                  for (i, j) in graph]
-    diag_terms.append((np.ones(d), -0.5 * len(graph)))
-    meas = Measurement.create_diagonal(cost_diag, diag_terms=diag_terms,
-                                       dtype=dtype, device=dev,
-                                       sampling=sampling, noisy=noisy)
+    h0_structure = TermStructure(kind="diag", diag=np.zeros(d))
+    if dense:
+        Hs = [np.diag(linalg.zz_diagonal(n_qubits, i, j)) for (i, j) in graph]
+        Hs += [linalg.op_on_qubits(linalg.X, [q], n_qubits)
+               for q in range(n_qubits)]
+        ham = ControlledHamiltonian.create(
+            np.zeros((d, d)), Hs, dtype=dtype, structure=structure,
+            h0_structure=h0_structure, device=dev)
+        # Pauli term table of sampled measurement
+        terms = [(np.diag(linalg.zz_diagonal(n_qubits, i, j)).astype(
+            np.complex128), 0.5) for (i, j) in graph]
+        terms.append((np.eye(d, dtype=np.complex128), -0.5 * len(graph)))
+        meas = Measurement.create(np.diag(cost_diag).astype(np.complex128),
+                                  terms=terms, dtype=dtype, device=dev,
+                                  sampling=sampling, noisy=noisy)
+    else:
+        ham = ControlledHamiltonian.create_structured(
+            d, structure, h0_structure=h0_structure, dtype=dtype)
+        diag_terms = [(linalg.zz_diagonal(n_qubits, i, j), 0.5)
+                      for (i, j) in graph]
+        diag_terms.append((np.ones(d), -0.5 * len(graph)))
+        meas = Measurement.create_diagonal(cost_diag, diag_terms=diag_terms,
+                                           dtype=dtype, device=dev,
+                                           sampling=sampling, noisy=noisy)
     T = float(np.pi * (1.0 / omega0 + 1.0 / omega1) * n_layers)
     psi0 = cpx.from_complex(linalg.uniform_superposition(n_qubits),
                             dtype=dtype, device=dev)

@@ -1,5 +1,5 @@
 """Host-side (numpy) operator helpers — a copy of the parts of
-:mod:`diffquantum_tpu.ops.linalg` the slice uses. They run once at problem
+:mod:`diffquantum_tpu.ops.linalg` the port uses. They run once at problem
 construction, not on the hot path. Qubit 0 is the most significant bit of
 an amplitude index (the kron ordering)."""
 from __future__ import annotations
@@ -56,3 +56,27 @@ def z_diagonal(n_qubits: int, i: int) -> np.ndarray:
     bits = np.arange(2**n_qubits)
     bi = (bits >> (n_qubits - 1 - i)) & 1
     return np.where(bi == 0, 1.0, -1.0)
+
+
+def multi_kron(*ops) -> np.ndarray:
+    """Kronecker product of a sequence of operators."""
+    ret = np.array([[1.0 + 0.0j]])
+    for q in ops:
+        ret = np.kron(ret, np.asarray(q))
+    return ret
+
+
+def pauli_string(spec: str) -> np.ndarray:
+    """Dense operator of a Pauli string such as ``"ZIZI"``."""
+    return multi_kron(*[PAULIS[c] for c in spec])
+
+
+def op_on_qubits(op: np.ndarray, qubits, n_qubits: int) -> np.ndarray:
+    """``op`` on each qubit in ``qubits``, identity elsewhere."""
+    return multi_kron(*[op if j in qubits else I2 for j in range(n_qubits)])
+
+
+def basis_state(index: int, dim: int) -> np.ndarray:
+    psi = np.zeros((dim,), dtype=np.complex128)
+    psi[index] = 1.0
+    return psi

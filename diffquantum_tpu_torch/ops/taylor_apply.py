@@ -1,0 +1,267 @@
+"""K7: the fused truncated-Taylor apply ``exp(z H) psi`` — the port of
+:mod:`diffquantum_tpu.ops.pallas_kernels` (``taylor_apply_fused``).
+
+The dense 'apply' backend of the propagator takes one step as ``2^s``
+substeps of ``order`` Taylor terms, ``t_k = (w/k) H t_{k-1}`` with
+``w = z / substeps``, summed per substep (:func:`..ops.expm.
+cexpm_apply_taylor` in the JAX package, in XLA). On the card each step
+is one launch of the hand-written kernel in ``csrc/taylor_apply.cu``;
+its backward is a second kernel that returns the cotangents of psi and
+of H (the coefficient gradient flows on through ``H(t) = H0 + sum u_k
+H_k``, a plain product outside any kernel). Both are IEEE fp32 for
+d <= 1024, as the TPU kernel served. On the CPU the wrapper runs the
+plain versions beside them (:func:`taylor_apply_plain`,
+:func:`taylor_apply_backward_plain`); a CUDA tensor always launches the
+kernel or raises.
+
+Real-plane cotangents: a loss L of the output planes gives
+``g = dL/dout_re + i dL/dout_im``; the returned ``(gH_re, gH_im)`` and
+``(gpsi_re, gpsi_im)`` are the gradients of the input planes, so that
+``dL = Re sum conj(G) dX`` for X in (H, psi). For the polynomial p(A) of
+one substep, A = w H: gpsi = p(A)^dagger g, and gH sums
+``conj(w/k) gbar_k t_{k-1}^dagger`` over the terms, gbar_k the
+cotangent of term k.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build, cpx
+from .cpx import CP
+
+MAX_D = 1024  # the largest dimension K7 takes (the TPU kernel's _MAX_D)
+
+# launches since the last reset (chip_smoke.py sets them to 0 around a
+# path and reads them after it)
+K7_FWD_LAUNCHES = 0
+K7_BWD_LAUNCHES = 0
+
+
+def _check(h: CP, psi: CP, zs: torch.Tensor):
+    if psi.ndim != 2 or h.ndim != 2:
+        raise ValueError(f"taylor_apply takes H [d, d] and psi [B, d], got "
+                         f"{tuple(h.shape)} and {tuple(psi.shape)}")
+    d = psi.shape[1]
+    if tuple(h.shape) != (d, d):
+        raise ValueError(f"H must be [{d}, {d}], got {tuple(h.shape)}")
+    if zs.shape != (2,):
+        raise ValueError("zs must be the per-substep (w_re, w_im), [2]")
+    devs = {t.device for t in (h.re, h.im, psi.re, psi.im, zs)}
+    if len(devs) != 1:
+        raise ValueError(f"taylor_apply inputs lie on several devices: "
+                         f"{sorted(map(str, devs))}")
+    if psi.re.is_cuda:
+        dts = {t.dtype for t in (h.re, h.im, psi.re, psi.im, zs)}
+        if dts != {torch.float32}:
+            raise NotImplementedError(
+                f"K7 takes float32 planes on the card, got "
+                f"{sorted(map(str, dts))}; a float64 dense 'apply' on the "
+                "card is not ported (ROADMAP.md, Queue 1 item 12)")
+        if d > MAX_D:
+            raise NotImplementedError(
+                f"K7 takes d <= {MAX_D}, got {d}; a larger dense 'apply' "
+                "on the card is not ported (ROADMAP.md, Queue 1 item 12)")
+
+
+# ---------------------------------------------------------------------------
+# the plain versions (what the CPU runs; chip_smoke holds the kernels
+# against them on the card)
+# ---------------------------------------------------------------------------
+
+def taylor_apply_plain(h: CP, psi: CP, zs: torch.Tensor, order: int,
+                       substeps: int) -> CP:
+    """K7's forward in plain PyTorch: psi [B, d], zs the per-substep
+    (w_re, w_im)."""
+    w_re, w_im = zs[0], zs[1]
+    x = psi
+    for _ in range(substeps):
+        term = acc = x
+        for k in range(1, order + 1):
+            term = cpx.cscale(cpx.matvec(h, term), w_re / k, w_im / k)
+            acc = cpx.add(acc, term)
+        x = acc
+    return x
+
+
+def _outer(g: CP, t: CP) -> CP:
+    """sum_b g[b, i] conj(t[b, j])."""
+    gt = CP(g.re.transpose(0, 1), g.im.transpose(0, 1))
+    return CP(gt.re @ t.re + gt.im @ t.im, gt.im @ t.re - gt.re @ t.im)
+
+
+def taylor_apply_backward_plain(h: CP, psi: CP, g: CP, zs: torch.Tensor,
+                                order: int, substeps: int):
+    """K7's backward in plain PyTorch, the kernel's algorithm: the
+    forward's terms, then the reverse recurrence. Returns (gH, gpsi)."""
+    w_re, w_im = zs[0], zs[1]
+    terms, x = [], psi
+    for _ in range(substeps):
+        ts, term, acc = [x], x, x
+        for k in range(1, order + 1):
+            term = cpx.cscale(cpx.matvec(h, term), w_re / k, w_im / k)
+            acc = cpx.add(acc, term)
+            if k < order:
+                ts.append(term)
+        terms.append(ts)
+        x = acc
+    hd = cpx.dag(h)
+    gh = cpx.zeros(h.shape, dtype=h.dtype, device=h.re.device)
+    lam = g
+    for ts in reversed(terms):
+        gbar = lam
+        for k in range(order, 0, -1):
+            c_re, c_im = w_re / k, -w_im / k        # conj(w / k)
+            gh = cpx.add(gh, cpx.cscale(_outer(gbar, ts[k - 1]), c_re, c_im))
+            gbar = cpx.add(lam, cpx.cscale(cpx.matvec(hd, gbar), c_re, c_im))
+        lam = gbar
+    return gh, lam
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels
+# ---------------------------------------------------------------------------
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("taylor_apply")
+    if not getattr(lib, "_dq_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.dq_k7_forward.argtypes = [p] * 9 + [i] * 4 + [p]
+        lib.dq_k7_forward.restype = i
+        lib.dq_k7_backward.argtypes = [p] * 14 + [i] * 4 + [p]
+        lib.dq_k7_backward.restype = i
+        lib.dq_k7_error_string.argtypes = [i]
+        lib.dq_k7_error_string.restype = ctypes.c_char_p
+        lib._dq_typed = True
+    return lib
+
+
+def _raise_on(lib, code: int, what: str):
+    if code != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{lib.dq_k7_error_string(code).decode()} "
+                           f"({code})")
+
+
+def _contig(*ts):
+    return [t.contiguous() for t in ts]
+
+
+def _forward_cuda(h_re, h_im, p_re, p_im, zs, order: int, substeps: int):
+    """One K7 forward launch; returns (out_re, out_im)."""
+    global K7_FWD_LAUNCHES
+    h_re, h_im, p_re, p_im, zs = _contig(h_re, h_im, p_re, p_im, zs)
+    b, d = p_re.shape
+    out_re, out_im = torch.empty_like(p_re), torch.empty_like(p_im)
+    buf = torch.empty((2, 2, b, d), dtype=torch.float32, device=p_re.device)
+    bar = torch.zeros(2, dtype=torch.int32, device=p_re.device)
+    lib = _lib()
+    with torch.cuda.device(p_re.device):
+        stream = torch.cuda.current_stream(p_re.device).cuda_stream
+        code = lib.dq_k7_forward(
+            h_re.data_ptr(), h_im.data_ptr(), p_re.data_ptr(),
+            p_im.data_ptr(), zs.data_ptr(), out_re.data_ptr(),
+            out_im.data_ptr(), buf.data_ptr(), bar.data_ptr(), d, b, order,
+            substeps, stream)
+    _raise_on(lib, code, "K7 forward")
+    K7_FWD_LAUNCHES += 1
+    return out_re, out_im
+
+
+def _backward_cuda(h_re, h_im, p_re, p_im, g_re, g_im, zs, order: int,
+                   substeps: int):
+    """One K7 backward launch; returns (gh_re, gh_im, gp_re, gp_im)."""
+    global K7_BWD_LAUNCHES
+    h_re, h_im, p_re, p_im, g_re, g_im, zs = _contig(
+        h_re, h_im, p_re, p_im, g_re, g_im, zs)
+    b, d = p_re.shape
+    f32 = dict(dtype=torch.float32, device=p_re.device)
+    gh_re, gh_im = torch.empty((d, d), **f32), torch.empty((d, d), **f32)
+    gp_re, gp_im = torch.empty_like(p_re), torch.empty_like(p_im)
+    terms = torch.empty((substeps, order, 2, b, d), **f32)
+    gbuf = torch.empty((3, 2, b, d), **f32)
+    bar = torch.zeros(2, dtype=torch.int32, device=p_re.device)
+    lib = _lib()
+    with torch.cuda.device(p_re.device):
+        stream = torch.cuda.current_stream(p_re.device).cuda_stream
+        code = lib.dq_k7_backward(
+            h_re.data_ptr(), h_im.data_ptr(), p_re.data_ptr(),
+            p_im.data_ptr(), g_re.data_ptr(), g_im.data_ptr(),
+            zs.data_ptr(), gh_re.data_ptr(), gh_im.data_ptr(),
+            gp_re.data_ptr(), gp_im.data_ptr(), terms.data_ptr(),
+            gbuf.data_ptr(), bar.data_ptr(), d, b, order, substeps, stream)
+    _raise_on(lib, code, "K7 backward")
+    K7_BWD_LAUNCHES += 1
+    return gh_re, gh_im, gp_re, gp_im
+
+
+class _TaylorApply(torch.autograd.Function):
+    """exp(z H) psi for one step and its cotangents in H and psi: the
+    kernel pair on the card, the plain pair on the CPU. No gradient flows
+    to z (the MC split time is sampled, not differentiated)."""
+
+    @staticmethod
+    def forward(ctx, h_re, h_im, p_re, p_im, zs, order, substeps):
+        if p_re.is_cuda:
+            out_re, out_im = _forward_cuda(h_re, h_im, p_re, p_im, zs,
+                                           order, substeps)
+        elif p_re.device.type == "cpu":
+            out = taylor_apply_plain(CP(h_re, h_im), CP(p_re, p_im), zs,
+                                     order, substeps)
+            out_re, out_im = out.re, out.im
+        else:
+            raise ValueError(f"taylor_apply: no path for device "
+                             f"{p_re.device}")
+        ctx.save_for_backward(h_re, h_im, p_re, p_im, zs)
+        ctx.static = (order, substeps)
+        return out_re, out_im
+
+    @staticmethod
+    def backward(ctx, g_re, g_im):
+        h_re, h_im, p_re, p_im, zs = ctx.saved_tensors
+        order, substeps = ctx.static
+        if p_re.is_cuda:
+            gh_re, gh_im, gp_re, gp_im = _backward_cuda(
+                h_re, h_im, p_re, p_im, g_re, g_im, zs, order, substeps)
+        else:
+            gh, gp = taylor_apply_backward_plain(
+                CP(h_re, h_im), CP(p_re, p_im), CP(g_re, g_im), zs, order,
+                substeps)
+            gh_re, gh_im, gp_re, gp_im = gh.re, gh.im, gp.re, gp.im
+        return gh_re, gh_im, gp_re, gp_im, None, None, None
+
+
+def substep_z(z_re, z_im, substeps: int, like: torch.Tensor) -> torch.Tensor:
+    """(z_re, z_im) / substeps as a [2] tensor on ``like``'s device and
+    dtype; numbers or 0-dim tensors (a split time drawn on the card stays
+    there, and a number is filled in place: no host copy)."""
+    parts = [z.to(dtype=like.dtype, device=like.device)
+             if isinstance(z, torch.Tensor)
+             else torch.full((), z, dtype=like.dtype, device=like.device)
+             for z in (z_re, z_im)]
+    return torch.stack(parts) / substeps
+
+
+def taylor_apply(h: CP, psi: CP, z_re, z_im, order: int,
+                 substeps: int) -> CP:
+    """``exp((z_re + i z_im) H) psi`` for psi [B, d] (or [d]) and H
+    [d, d], as ``substeps`` substeps of ``order`` Taylor terms (choose
+    them with :func:`..ops.expm.taylor_params`; substeps = 2^s), one K7
+    launch on the card; differentiable in H and psi."""
+    return taylor_apply_zs(h, psi, substep_z(z_re, z_im, substeps, psi.re),
+                           order, substeps)
+
+
+def taylor_apply_zs(h: CP, psi: CP, zs: torch.Tensor, order: int,
+                    substeps: int) -> CP:
+    """:func:`taylor_apply` with the per-substep ``zs = z / substeps``
+    already made by :func:`substep_z` (a chain of steps of one dt makes it
+    once)."""
+    one = psi.ndim == 1
+    if one:
+        psi = CP(psi.re[None], psi.im[None])
+    _check(h, psi, zs)
+    re, im = _TaylorApply.apply(h.re, h.im, psi.re, psi.im, zs, int(order),
+                                int(substeps))
+    return CP(re[0], im[0]) if one else CP(re, im)

@@ -78,6 +78,10 @@ def train_energy_seeds(
     exact energy before epoch e's update."""
     if mesh is not None:
         raise NotImplementedError(_MESH_MSG)
+    if not ham.is_structured_only or measurement.diag is None:
+        raise NotImplementedError(
+            "train_energy_seeds on dense Hamiltonians and non-diagonal "
+            "objectives is not ported yet (ROADMAP.md, Queue 1 item 13)")
     del data_axis
     if config.grad_mode not in ("adjoint", "mc"):
         raise ValueError(f"train_energy_seeds takes grad_mode 'adjoint' or "

@@ -46,6 +46,7 @@ from ..gradients.fd import fd_energy_grad
 from ..gradients.mc import (check_sampled_size, mc_energy_grad,
                             mc_energy_grad_batch)
 from ..measure import Measurement, measure
+from ..ops import cpx
 from ..utils.logger import Logger, NullLogger
 from .config import TrainConfig
 
@@ -86,6 +87,18 @@ def l2_grad(coeff: torch.Tensor, w_l2: float) -> torch.Tensor:
     j2 = torch.arange(coeff.shape[-1], dtype=coeff.dtype,
                       device=coeff.device) ** 2
     return 2.0 * w_l2 * coeff * j2 / coeff.numel()
+
+
+def _lambda_min(measurement: Measurement) -> float:
+    """The smallest eigenvalue of M, once on the host: the diagonal's
+    minimum, a dense operator's lowest eigenvalue, else 0 (a target:
+    the gap is then the raw loss)."""
+    if measurement.diag is not None:
+        return float(measurement.diag.min())
+    if measurement.matrix is not None:
+        return float(np.linalg.eigvalsh(cpx.to_complex(
+            measurement.matrix))[0])
+    return 0.0
 
 
 def train_energy(
@@ -130,7 +143,7 @@ def train_energy(
     T = float(T)
     n_steps = reference_n_steps(config.per_step, 0.0, T)
     if lam_min is None:
-        lam_min = float(measurement.diag.min())
+        lam_min = _lambda_min(measurement)
     lam_min = float(lam_min)
     evolve_kw = dict(backend=config.backend, precision=config.precision,
                      t_sample=config.t_sample)

@@ -1,7 +1,8 @@
 """Where the time of the port's MaxCut paths goes, on a card.
 
     python3 scripts/profile_torch_step.py [--steps 50]
-        [--path grad|seeds|mc|mc_seeds|fd|grad18|grad20|grad24|grad20hop|all]
+        [--path grad|seeds|mc|mc_seeds|fd|grad18|grad20|grad24|grad20hop|
+                grad10dense|demo_mc|all]
 
 Paths (the ring MaxCut, n_basis 6, 30 Strang steps; 12 qubits unless
 named):
@@ -15,7 +16,11 @@ named):
   grad24    the same at 24 qubits (K5);
   grad20hop one ``energy_and_grad`` call on the 20-qubit molecule drive
             set (X and Y on every qubit, hops and ZZ on the pairs (i, i+1)
-            and (i, i+2), n_basis 4; chip_smoke.py's ``hop_problem``): K6.
+            and (i, i+2), n_basis 4; chip_smoke.py's ``hop_problem``): K6;
+  grad10dense one ``energy_and_grad`` call on the 10-qubit dense ring
+            MaxCut ('apply': 30 K7 forward and 30 backward launches);
+  demo_mc   one MC epoch of ``train_energy`` on the 4-qubit demo ring,
+            dense, 100 steps per leg (K7 on the 16 branches).
 A problem is built only for the paths asked for (the 24-qubit one takes
 the host tens of seconds).
 For each it runs the steps under ``torch.profiler`` and prints: the wall
@@ -38,7 +43,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PATHS = ("grad", "seeds", "mc", "mc_seeds", "fd", "grad18", "grad20",
-         "grad24", "grad20hop")
+         "grad24", "grad20hop", "grad10dense", "demo_mc")
 
 
 def make_run(name):
@@ -51,6 +56,7 @@ def make_run(name):
     from diffquantum_tpu_torch.models import maxcut
     from diffquantum_tpu_torch.parallel import train_energy_seeds
     from diffquantum_tpu_torch.train.config import TrainConfig
+    from diffquantum_tpu_torch.train.energy import train_energy
 
     def loop(fn):
         def run(k):
@@ -64,8 +70,18 @@ def make_run(name):
         return loop(lambda: energy_and_grad(
             hop.ham, hop.envelope, hop.measurement, hop.coeff, hop.psi0,
             hop.T, 30))
-    n = int(name[4:]) if name.startswith("grad") and name != "grad" else 12
-    prob = maxcut.build_maxcut(n, maxcut.ring_graph(n), n_basis=6)
+    if name == "demo_mc":
+        demo = maxcut.demo_problem()
+        return lambda k: train_energy(
+            demo.ham, demo.envelope, demo.measurement, demo.psi0, demo.T,
+            TrainConfig(n_basis=6, n_epoch=k, lr=2e-2, grad_mode="mc"))
+    if name == "grad10dense":
+        prob = maxcut.build_maxcut(10, maxcut.ring_graph(10), n_basis=6,
+                                   dense=True)
+    else:
+        n = int(name[4:]) if name.startswith("grad") and name != "grad" \
+            else 12
+        prob = maxcut.build_maxcut(n, maxcut.ring_graph(n), n_basis=6)
     coeff = torch.tensor(1e-3 * np.random.default_rng(0).standard_normal(
         prob.envelope.coeff_shape), dtype=torch.float32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)

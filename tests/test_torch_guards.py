@@ -1,9 +1,10 @@
 """Guards of the PyTorch port: it imports neither JAX nor the JAX package,
 its entry points refuse to run on the CPU unless asked, what is not
 ported raises NotImplementedError instead of falling back (device meshes,
-LR schedules, checkpoints, dense and channel objectives, the MC and FD
-estimators at 18+ qubits), the JAX package's engine names are no
-backends, and chip_smoke.py fails without a card."""
+LR schedules, checkpoints, Pauli-string and channel objectives, dense
+seed populations, the MC and FD estimators at 18+ qubits), the JAX
+package's engine names are no backends, the dense 'auto' rule and the
+CPU's plain path of 'apply', and chip_smoke.py fails without a card."""
 import ast
 import os
 import pathlib
@@ -17,6 +18,7 @@ import torch
 from diffquantum_tpu_torch import convert
 from diffquantum_tpu_torch.dynamics import hamiltonian as tham
 from diffquantum_tpu_torch.dynamics import product as tprod
+from diffquantum_tpu_torch.dynamics import propagator as tprop
 from diffquantum_tpu_torch.dynamics.propagator import evolve
 from diffquantum_tpu_torch.gradients.fd import fd_energy_grad
 from diffquantum_tpu_torch.gradients.mc import (envelope_jacobian,
@@ -43,6 +45,11 @@ def test_port_imports_no_jax():
     files = sorted((REPO / "diffquantum_tpu_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch_step.py"]
     assert len(files) > 15
+    names = {str(f.relative_to(REPO / "diffquantum_tpu_torch"))
+             for f in files if "diffquantum_tpu_torch" in f.parts}
+    assert {"ops/expm.py", "ops/taylor_apply.py", "train/gate.py",
+            "train/fidelity.py", "models/control.py",
+            "models/vqe_h2.py"} <= names
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
@@ -81,8 +88,6 @@ def _small_problem():
 
 
 @pytest.mark.parametrize("backend,error,match", [
-    pytest.param("expm", NotImplementedError, "ROADMAP.md", id="expm"),
-    pytest.param("apply", NotImplementedError, "ROADMAP.md", id="apply"),
     # engine names, which the JAX package's evolve does not take either
     pytest.param("packed", ValueError, "unknown backend", id="packed"),
     pytest.param("mega", ValueError, "unknown backend", id="mega"),
@@ -116,10 +121,11 @@ def test_router_raises_past_the_streamed_band(n):
 
 
 @pytest.mark.parametrize("what", ["mesh", "cosine", "checkpoint",
-                                  "dense_sampling", "dense", "batched_18q",
-                                  "create", "envelope_jacobian"])
+                                  "batched_18q", "envelope_jacobian",
+                                  "strings", "dense_seeds"])
 def test_unported_features_raise(what):
     p = _small_problem()
+    dense = tmaxcut.demo_problem(device="cpu")
     cfg = TrainConfig(n_epoch=1)
     run = lambda c: train_energy(p.ham, p.envelope, p.measurement,  # noqa
                                  p.psi0, p.T, c)
@@ -129,10 +135,6 @@ def test_unported_features_raise(what):
             mesh=object()),
         "cosine": lambda: run(cfg.replace(lr_schedule="cosine")),
         "checkpoint": lambda: run(cfg.replace(checkpoint_dir="ckpt")),
-        "dense_sampling": lambda: Measurement.create(
-            np.eye(4), terms=[(np.eye(4), 1.0)], sampling=True),
-        "dense": lambda: tmaxcut.build_maxcut(
-            4, tmaxcut.ring_graph(4), dense=True, device="cpu"),
         # the MC estimator's batch at 18 qubits (item 16)
         "batched_18q": lambda: mc_energy_grad_batch(
             _ham(18), SimpleEnvelope(basis="bspline", n_basis=4,
@@ -140,10 +142,13 @@ def test_unported_features_raise(what):
             None, torch.zeros((2, 4)), CP(torch.zeros(2**18),
                                           torch.zeros(2**18)),
             1.0, None, 2, 4, s=torch.full((4,), 0.5)),
-        "create": lambda: tham.ControlledHamiltonian.create(
-            np.zeros((2, 2)), []),
         "envelope_jacobian": lambda: envelope_jacobian(
             p.envelope, torch.zeros(p.envelope.coeff_shape), 0.5, p.T),
+        "strings": lambda: Measurement.create_strings(
+            [("ZZ", 1.0)], device="cpu"),
+        "dense_seeds": lambda: train_energy_seeds(
+            dense.ham, dense.envelope, dense.measurement, dense.psi0,
+            dense.T, cfg, n_seeds=2),
     }[what]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         call()
@@ -179,6 +184,51 @@ def test_sampled_estimators_raise_at_18_qubits(entry):
     }[entry]
     with pytest.raises(NotImplementedError, match="item 16"):
         call()
+
+
+def test_dense_auto_rule_on_cpu():
+    """On the CPU, as on the card, 'auto' takes the dense backends for a
+    dense Hamiltonian even with structure tags: 'expm' for the demo's
+    one state, 'apply' for a batch; a structured one keeps the eager
+    Strang engine, and refuses the dense backends."""
+    dense = tmaxcut.demo_problem(device="cpu", dtype=torch.float64)
+    c = torch.full(dense.envelope.coeff_shape, 0.3, dtype=torch.float64)
+    batch = CP(dense.psi0.re.expand(3, -1), dense.psi0.im.expand(3, -1))
+    kw = dict(horizon=dense.T, n_steps=8)
+    for psi0, want in ((dense.psi0, "expm"), (batch, "apply")):
+        assert tprop.dense_backend(dense.ham, psi0.ndim > 1) == want
+        auto = evolve(dense.ham, dense.envelope, c, psi0, 0.0, dense.T, **kw)
+        named = evolve(dense.ham, dense.envelope, c, psi0, 0.0, dense.T,
+                       backend=want, **kw)
+        assert torch.equal(auto.re, named.re)
+    structured = tmaxcut.demo_problem(device="cpu", dtype=torch.float64,
+                                      dense=False)
+    auto = evolve(structured.ham, structured.envelope, c, structured.psi0,
+                  0.0, structured.T, **kw)
+    eager = evolve(structured.ham, structured.envelope, c, structured.psi0,
+                   0.0, structured.T, backend="product", **kw)
+    assert torch.equal(auto.re, eager.re)
+    for backend in ("expm", "apply"):
+        with pytest.raises(ValueError, match="dense operators"):
+            evolve(structured.ham, structured.envelope, c, structured.psi0,
+                   0.0, structured.T, backend=backend, **kw)
+
+
+def test_apply_on_cpu_never_loads_the_kernels(monkeypatch):
+    """'apply' on a CPU state runs K7's plain pair and never builds or
+    loads a kernel library, forward or backward."""
+    from diffquantum_tpu_torch.gradients.adjoint import energy_and_grad
+    from diffquantum_tpu_torch.ops import _build
+
+    def refuse(*a, **k):
+        raise AssertionError("a CPU path tried to load a kernel library")
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(_build, "build_all", refuse)
+    p = tmaxcut.demo_problem(device="cpu")
+    c = torch.full(p.envelope.coeff_shape, 0.2)
+    val, grad = energy_and_grad(p.ham, p.envelope, p.measurement, c, p.psi0,
+                                p.T, 6, backend="apply")
+    assert torch.isfinite(grad).all() and np.isfinite(float(val))
 
 
 def test_make_mesh_raises():

@@ -47,7 +47,7 @@ def _problems(n, dtype_np, n_basis=4, **kw):
     jp = jmaxcut.build_maxcut(n, jmaxcut.ring_graph(n), n_basis=n_basis,
                               dense=False, dtype=jnp.dtype(dtype_np), **kw)
     tp = tmaxcut.build_maxcut(n, tmaxcut.ring_graph(n), n_basis=n_basis,
-                              dtype=tdt, device="cpu", **kw)
+                              dense=False, dtype=tdt, device="cpu", **kw)
     coeff = (0.5 * np.random.default_rng(n).standard_normal(
         tp.envelope.coeff_shape)).astype(dtype_np)
     return jp, tp, coeff
@@ -290,7 +290,7 @@ def test_measurement_expectation_sampled_and_noisy(terms):
 def test_train_energy_fd_matches_jax_epoch_by_epoch():
     """FD is deterministic: the FD trainer follows JAX's epoch by epoch."""
     jp = jmaxcut.demo_problem(dtype=jnp.float64, dense=False)
-    tp = tmaxcut.demo_problem(dtype=torch.float64, device="cpu")
+    tp = tmaxcut.demo_problem(dtype=torch.float64, dense=False, device="cpu")
     coeff = 1e-3 * np.random.default_rng(0).standard_normal(
         tp.envelope.coeff_shape)
     cfg = dict(n_basis=6, n_epoch=4, lr=5e-2, dtype="float64", n_step=20)
@@ -308,7 +308,7 @@ def test_train_energy_fd_matches_jax_epoch_by_epoch():
 def test_train_energy_mc_descends(mc_samples):
     """The 4-qubit demo ring with MC gradients (one sample, or the mean of
     three iid samples as one batch) descends toward its max cut."""
-    tp = tmaxcut.demo_problem(dtype=torch.float64, device="cpu")
+    tp = tmaxcut.demo_problem(dtype=torch.float64, dense=False, device="cpu")
     cfg = TConfig(n_basis=6, n_epoch=60, lr=5e-2, dtype="float64",
                   grad_mode="mc", n_step=20, mc_samples=mc_samples)
     r = t_train(tp.ham, tp.envelope, tp.measurement, tp.psi0, tp.T, cfg)
@@ -320,7 +320,7 @@ def test_train_energy_mc_descends(mc_samples):
 def test_train_energy_mc_sampled_noisy_runs():
     """Shot-sampled, noisy MC training: measured losses are finite and
     scatter around the exact energy."""
-    tp = tmaxcut.demo_problem(dtype=torch.float64, device="cpu")
+    tp = tmaxcut.demo_problem(dtype=torch.float64, dense=False, device="cpu")
     cfg = TConfig(n_basis=6, n_epoch=5, lr=5e-2, dtype="float64",
                   grad_mode="mc", n_step=20, mc_samples=2,
                   sampling_measure=True, is_noisy=True, per_pauli=20)
@@ -334,7 +334,7 @@ def test_train_energy_mc_sampled_noisy_runs():
 def test_train_energy_seeds_mc_mode(mc_samples, strategy):
     """As tests/test_parallel.py holds the JAX trainer: MC gradients over
     4 seeds of the demo ring reach within 1.0 of the optimum."""
-    tp = tmaxcut.demo_problem(dtype=torch.float64, device="cpu")
+    tp = tmaxcut.demo_problem(dtype=torch.float64, dense=False, device="cpu")
     cfg = TConfig(n_basis=6, n_epoch=60, lr=5e-2, dtype="float64", seed=0,
                   grad_mode="mc", n_step=20, mc_samples=mc_samples,
                   mc_strategy=strategy)
