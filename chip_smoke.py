@@ -20,7 +20,11 @@ at the first phase that does not hold:
    tile boundary, two sign planes, T = 1, B > 1); then the same pair
    through K6's entry points (the palindromic A/B schedule of hop drive
    sets, phase_hop_kernels: the molecule drive set at 19, 20 and 24
-   qubits, a set whose B ops commute, T = 1, B = 4);
+   qubits, a set whose B ops commute, T = 1, B = 4); K7
+   (csrc/taylor_apply.cu, phase_dense_kernels); and the pair through
+   K4's entry point, the per-call chain of the sharded engine
+   (phase_chunked_kernels: 12 qubits T = 1, the 20-qubit random graph at
+   T = 1 and 30, 24 qubits T = 1, a palindromic X/Y plan);
 3. the paths through the user's entry points, each with the kernels'
    launch counters set to 0 just before it and read just after:
    a. the 12-qubit ring MaxCut adjoint gradient (``energy_and_grad``)
@@ -51,6 +55,16 @@ at the first phase that does not hold:
       batched), each seed against itself run alone; and a 19-qubit set
       of disjoint hops, where K6 and the eager engine coincide, against
       the eager engine;
+   g. the dense slice on K7 (phase_dense_paths): the 10-qubit dense
+      ring MaxCut, the reference demo with MC gradients, gate synthesis,
+      state control and VQE H2;
+   h. the state-sharded engine on a mesh of one rank
+      (phase_sharded_paths): the 24-qubit ring through 'chunked' (K4
+      only) against ``energy_and_grad`` on K5, and 3 Adam epochs; the
+      12-qubit ring through 'fused' (K1 only) and 'xla'; 64 seeds on a
+      data mesh of one against ``mesh=None``; the dense 'apply' routes:
+      the 8-qubit dense seed population on K7, an 11-qubit dense grad
+      step and a float64 10-qubit step on the recurrence;
    each checked against the eager Strang engine on the card
    (``backend='product'``) or the adjoint gradient, with the limits
    named below;
@@ -63,7 +77,8 @@ at the first phase that does not hold:
    (and batched, B = 8 at 20), the 18/20/24-qubit grad steps and the
    20-qubit 8-seed epoch, with the host's time to enqueue one chain; K6
    on the molecule drive set at 20 qubits (and batched, B = 4) and 24,
-   and the 20-qubit molecule grad step;
+   and the 20-qubit molecule grad step; K7 and the dense steps; K4 at 24
+   qubits T = 1 and the 24-qubit sharded grad step beside the one on K5;
 5. a JSON line of per-kernel numbers, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -574,6 +589,11 @@ COUNTERS = {  # kernel name -> (module, launch counter)
     "k6_batched_backward": ("fused_mega_hop", "K6_BATCHED_BWD_LAUNCHES"),
     "k7_forward": ("taylor_apply", "K7_FWD_LAUNCHES"),
     "k7_backward": ("taylor_apply", "K7_BWD_LAUNCHES"),
+    # K4 (the sharded engine's per-call step), and the dense 'apply'
+    # backend's recurrence route (plain products, no kernel of its own)
+    "k4_forward": ("fused_chunked", "K4_FWD_LAUNCHES"),
+    "k4_backward": ("fused_chunked", "K4_BWD_LAUNCHES"),
+    "apply_recurrence": ("taylor_apply", "APPLY_RECURRENCE_CALLS"),
 }
 
 
@@ -2143,6 +2163,401 @@ def phase_dense_times():
     return out
 
 
+# --------------------------------------------------------------------------
+# the sharded engine's local step: K4 (the per-call packed chain, on the
+# pass pair) and the paths of evolve_product_sharded at world size 1
+# --------------------------------------------------------------------------
+
+# The sharded 24q 'chunked' grad step against energy_and_grad on K5 (one
+# integrator at k = 0: K4's T = 1 chains leave the half-phases unmerged),
+# value atol and gradient relative to its max-norm, as the frontier's
+# limits; the meshed seeds against mesh=None (per-epoch losses, absolute).
+SHARDED_VALUE_ATOL = 5e-5
+SHARDED_GRAD_REL = 1e-4
+MESH_SEEDS_ATOL = 1e-6
+
+
+def xy_palindromic(n, n_steps, seed):
+    """An n-qubit X/Y plan sharing qubits 0 and n - 3 (palindromic, half
+    angles mirrored) with the ring's sign planes and random rows, in K4's
+    single form: (psi0 [d], ud [T, S], theta_x [T, n_ops], h0th, signs,
+    qubits, kinds)."""
+    import torch
+    from diffquantum_tpu_torch.dynamics.product import _symmetrize_rots
+    rng = np.random.default_rng(seed)
+    _, _, _, _, signs, _, _ = packed_inputs(frontier_problem(n), 1, seed)
+    qubits = tuple(range(n)) + (0, n - 3)
+    kinds = ("x",) * n + ("y", "y")
+    f32 = dict(dtype=torch.float32, device=DEVICE)
+    tx = torch.tensor(0.3 * rng.standard_normal((n_steps, len(qubits))),
+                      **f32)
+    qubits, kinds, tx = _symmetrize_rots(qubits, kinds, tx, dim=1)
+    ud = torch.tensor(0.2 * rng.standard_normal((n_steps, n + 1)), **f32)
+    h0th = torch.tensor(0.1 * rng.standard_normal(2**n), **f32)
+    psi0 = _random_cp(rng, (2**n,), 1.0 / np.sqrt(2**(n + 1)))
+    return psi0, ud, tx.contiguous(), h0th, signs, qubits, kinds
+
+
+def phase_chunked_kernels():
+    """K4 (``chunked_evolve``) forward and backward through its entry
+    point and autograd against its plain versions: 12q T=1 (no chunk
+    bits in the JAX package's plan), the 20q random graph (two sign
+    planes) at T=1 and T=30, 24q T=1 (the sharded path's call) and a
+    palindromic X/Y plan. Returns {"k4": (forward, backward) max abs
+    errors} of the 24q T=1 case."""
+    import torch
+    from diffquantum_tpu_torch.ops import fused_chunked as tfc
+    from diffquantum_tpu_torch.ops.cpx import CP
+
+    cases = [("K4 12q ring MaxCut, T=1 (no chunk bits)", 12, 1, "ring"),
+             ("K4 20q random graph (P=2 sign planes), T=1", 20, 1, "random"),
+             ("K4 20q random graph (P=2 sign planes), T=30", 20, 30,
+              "random"),
+             ("K4 24q ring MaxCut, T=1", 24, 1, "ring"),
+             ("K4 20q palindromic X/Y plan (X and Y on qubits 0 and 17), "
+              "T=1", 20, 1, "xy")]
+    errs = {}
+    for label, n, n_steps, chain in cases:
+        seed = 4000 + n * 10 + n_steps
+        rng = np.random.default_rng(seed)
+        if chain == "xy":
+            psi0, ud, tx, h0th, signs, qubits, kinds = xy_palindromic(
+                n, n_steps, seed)
+            w = torch.tensor(rng.standard_normal(2**n), dtype=torch.float32,
+                             device=DEVICE)
+        else:
+            prob = frontier_problem(n, chain)
+            _, ud, tx, h0th, signs, qubits, kinds = packed_inputs(
+                prob, n_steps, seed)
+            psi0, w = prob.psi0, prob.measurement.diag
+        args = (h0th, signs, qubits, n, kinds)
+        leaves = [t.clone().requires_grad_(True)
+                  for t in (psi0.re, psi0.im, ud, tx)]
+        before = read_counts()
+        t0 = time.perf_counter()
+        out = tfc.chunked_evolve(CP(leaves[0], leaves[1]), leaves[2],
+                                 leaves[3], *args)
+        torch.cuda.synchronize()
+        t_k = time.perf_counter() - t0
+        ref = tfc.chunked_evolve_plain(psi0, ud, tx, *args)
+        lam = CP(2.0 * w * ref.re, 2.0 * w * ref.im)  # d<w>/dpsi
+        got = torch.autograd.grad((out.re, out.im), leaves, (lam.re, lam.im))
+        after = read_counts()
+        ran = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        if ran != {"k4_forward": 1, "k4_backward": 1}:
+            fail(f"{label}: the entry point launched {ran}, expected one K4 "
+                 f"chain each way")
+        gp, gud, gtx = tfc._adjoint_chunked_plain(ref, lam, ud, tx, *args)
+        torch.cuda.synchronize()
+        fwd_err, bwd_abs, rels = _check_case(
+            label, "K4", TOL_PK, (out.re.detach(), out.im.detach()), ref,
+            got, (gp.re, gp.im, gud, gtx), "dpsi_re, dpsi_im, dud, dtheta_x")
+        log(f"kernel check K4 [{label}]: {len(kinds)} ops, "
+            f"{signs.shape[0]} sign plane(s), forward max abs err "
+            f"{fwd_err!r} (atol {TOL_PK['fwd']}); backward relative errors "
+            f"{rels!r} (bound {TOL_PK['grad']}); first launch + sync "
+            f"{t_k * 1e3:.3f} ms")
+        if n == 24:
+            errs["k4"] = (fwd_err, bwd_abs)
+        del out, ref, got, leaves, gp, gud, gtx, lam
+        torch.cuda.empty_cache()
+    return errs
+
+
+def _sharded_grad(mesh, prob, coeff, n_steps, backend):
+    """(value, coefficient gradient) of ``evolve_product_sharded`` and
+    ``sharded_diag_expectation`` at ``prob``'s diagonal objective."""
+    import torch
+    from diffquantum_tpu_torch.parallel import (evolve_product_sharded,
+                                                sharded_diag_expectation)
+    c = coeff.detach().clone().requires_grad_(True)
+    psi = evolve_product_sharded(prob.ham, prob.envelope, c, prob.psi0, 0.0,
+                                 prob.T, horizon=prob.T, n_steps=n_steps,
+                                 mesh=mesh, local_backend=backend)
+    e = sharded_diag_expectation(psi, prob.measurement.diag, mesh)
+    (g,) = torch.autograd.grad(e, c)
+    return e.detach(), g
+
+
+def _against(label, val, grad, val_r, grad_r, atol, grel):
+    import torch
+    dv, dg = abs(float(val) - float(val_r)), rel_err(grad, grad_r)
+    log(f"{label}: value {float(val)!r} (reference {float(val_r)!r}, diff "
+        f"{dv!r}); gradient relative diff {dg!r}")
+    if not (torch.isfinite(grad).all() and dv <= atol and dg <= grel):
+        fail(f"{label} disagrees with its reference (value atol {atol}, "
+             f"gradient {grel} of max-norm)")
+
+
+def phase_sharded_paths(total):
+    """The sharded engine on a mesh of one rank (one card): the 24q ring
+    through 'chunked' (K4 only), the 12q ring through 'fused' (K1 only)
+    and 'xla' (no kernel), the meshed seed population, and the dense
+    'apply' routes of this slice (K7 for a seed population at d = 256;
+    the recurrence at d = 2048 and in float64)."""
+    import torch
+    from diffquantum_tpu_torch.dynamics.propagator import reference_n_steps
+    from diffquantum_tpu_torch.gradients.adjoint import energy_and_grad
+    from diffquantum_tpu_torch.parallel import make_mesh, train_energy_seeds
+    from diffquantum_tpu_torch.train.config import TrainConfig
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh({"state": 1})
+    log(f"sharded: mesh {mesh.shape} on {mesh.device} (world size 1)")
+    prob = frontier_problem(24)
+    n_steps = reference_n_steps(10, 0.0, prob.T)
+    coeff = torch.tensor(0.4 * np.random.default_rng(24).standard_normal(
+        prob.envelope.coeff_shape), dtype=torch.float32, device=DEVICE)
+    val, grad = _counted(total, "sharded 'chunked', 24q grad step",
+                         {"k4_forward": n_steps, "k4_backward": n_steps},
+                         lambda: _sharded_grad(mesh, prob, coeff, n_steps,
+                                               "chunked"))
+    val_r, grad_r = _counted(
+        total, "energy_and_grad, 24q (K5, the reference)",
+        {"k5_forward": 1, "k5_backward": 1},
+        lambda: energy_and_grad(prob.ham, prob.envelope, prob.measurement,
+                                coeff, prob.psi0, prob.T, n_steps))
+    _against("sharded: 24q 'chunked' grad step against energy_and_grad on "
+             "K5", val, grad, val_r, grad_r, SHARDED_VALUE_ATOL,
+             SHARDED_GRAD_REL)
+    epochs = 3
+
+    def train():
+        c = coeff.clone().requires_grad_(True)
+        opt = torch.optim.Adam([c], lr=2e-2)
+        losses = []
+        for _ in range(epochs):
+            e, g = _sharded_grad(mesh, prob, c, n_steps, "chunked")
+            c.grad = g
+            opt.step()
+            losses.append(float(e))
+        return losses
+
+    losses = _counted(total, f"sharded 'chunked', 24q, {epochs} Adam epochs",
+                      {"k4_forward": epochs * n_steps,
+                       "k4_backward": epochs * n_steps}, train)
+    log(f"sharded: 24q 'chunked' {epochs} Adam epochs, loss {losses[0]!r} "
+        f"-> {losses[-1]!r}")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail("the sharded 24q training loss did not fall")
+    torch.cuda.empty_cache()
+
+    ring, n12 = twelve_qubits()
+    c12 = coeff_12q(ring)
+    val_r, grad_r = energy_and_grad(ring.ham, ring.envelope,
+                                    ring.measurement, c12, ring.psi0, ring.T,
+                                    n12)
+    for backend, want in (("fused", {"k1_forward": n12,
+                                     "k1_backward": n12}),
+                          ("xla", {})):
+        val, grad = _counted(total, f"sharded {backend!r}, 12q grad step",
+                             want, lambda b=backend: _sharded_grad(
+                                 mesh, ring, c12, n12, b))
+        _against(f"sharded: 12q {backend!r} grad step against "
+                 f"energy_and_grad on K1", val, grad, val_r, grad_r, 5e-5,
+                 1e-4)
+
+    init = torch.tensor(1e-3 * np.random.default_rng(64).standard_normal(
+        (64,) + ring.envelope.coeff_shape), dtype=torch.float32,
+        device=DEVICE)
+    cfg = TrainConfig(n_epoch=3, lr=2e-2)
+    args = (ring.ham, ring.envelope, ring.measurement, ring.psi0, ring.T, cfg)
+    meshed = _counted(total, "train_energy_seeds, 12q, 64 seeds, data mesh "
+                      "of 1, 3 epochs", {"k2_forward": 3, "k2_backward": 3},
+                      lambda: train_energy_seeds(
+                          *args, n_seeds=64, init_coeffs=init,
+                          mesh=make_mesh({"data": 1})))
+    plain = train_energy_seeds(*args, n_seeds=64, init_coeffs=init)
+    diff = float(np.abs(meshed.losses - plain.losses).max())
+    log(f"sharded: 64 seeds on a data mesh of 1 against mesh=None: max abs "
+        f"loss diff {diff!r} (atol {MESH_SEEDS_ATOL})")
+    if not (meshed.losses.shape == plain.losses.shape == (3, len(init))
+            and diff <= MESH_SEEDS_ATOL
+            and np.all(meshed.losses[-1] < meshed.losses[0])):
+        fail("the meshed seed population differs from mesh=None or its "
+             "losses did not fall")
+    log(f"sharded: the sharded paths took {time.perf_counter() - t_phase:.1f}"
+        f" s")
+    dense_routes(total)
+
+
+def _dense_11q(dtype):
+    """An 11-qubit dense problem (d = 2048): ZZ(0, 1), X on qubit 0 and
+    Y on qubit 10, a diagonal drift 0.3 Z_5 (norms known exactly: no host
+    eigendecomposition of 2048 x 2048 operators); psi0, a diagonal
+    objective and coefficients from fixed seeds."""
+    import torch
+    from diffquantum_tpu_torch.dynamics.hamiltonian import \
+        ControlledHamiltonian
+    from diffquantum_tpu_torch.ops import cpx, linalg
+    from diffquantum_tpu_torch.pulses.envelope import SimpleEnvelope
+    n = 11
+    d = 2**n
+    hs = np.stack([np.diag(linalg.zz_diagonal(n, 0, 1)),
+                   linalg.op_on_qubits(linalg.X, [0], n),
+                   linalg.op_on_qubits(linalg.Y, [10], n)])
+    h0 = np.diag(0.3 * linalg.z_diagonal(n, 5)).astype(np.complex128)
+    ham = ControlledHamiltonian(
+        h0_norm=0.3, hs_norms=(1.0, 1.0, 1.0), structure=None,
+        h0_structure=None, n_qubits=n, dtype=dtype,
+        H0=cpx.from_complex(h0, dtype=dtype, device=DEVICE),
+        Hs=cpx.from_complex(hs, dtype=dtype, device=DEVICE))
+    env = SimpleEnvelope(basis="bspline", n_basis=4, omegas=(1.0, 0.8, 0.6))
+    rng = np.random.default_rng(11)
+    psi = rng.standard_normal(d) + 1j * rng.standard_normal(d)
+    psi0 = cpx.from_complex(psi / np.linalg.norm(psi), dtype=dtype,
+                            device=DEVICE)
+    w = torch.tensor(rng.standard_normal(d), dtype=dtype, device=DEVICE)
+    c = torch.tensor(0.4 * rng.standard_normal((3, 4)), dtype=dtype,
+                     device=DEVICE)
+    return ham, env, psi0, w, c
+
+
+def dense_routes(total):
+    """The dense 'apply' routes on the card: the 8q dense ring MaxCut's
+    seed population on K7 (backend 'apply': one launch per seed and step,
+    each seed its own H(t)) against 'auto' (the JAX package's per-seed
+    rule takes 'expm' below d = 512); on the recurrence route, one 11q
+    dense grad step (d = 2048, against the float64 recurrence; the CPU
+    tests hold the recurrence against the JAX package's 'apply') and one
+    float64 10q step against float64 'expm'."""
+    import torch
+    from diffquantum_tpu_torch.dynamics.propagator import reference_n_steps
+    from diffquantum_tpu_torch.gradients.adjoint import energy_and_grad
+    from diffquantum_tpu_torch.models import maxcut
+    from diffquantum_tpu_torch.parallel import train_energy_seeds
+    from diffquantum_tpu_torch.train.config import TrainConfig
+
+    t_phase = time.perf_counter()
+    p8 = maxcut.build_maxcut(8, maxcut.ring_graph(8), device=DEVICE)
+    n8 = reference_n_steps(10, 0.0, p8.T)
+    n_seeds, epochs = 4, 3
+    init = torch.tensor(1e-3 * np.random.default_rng(8).standard_normal(
+        (n_seeds,) + p8.envelope.coeff_shape), dtype=torch.float32,
+        device=DEVICE)
+    args = (p8.ham, p8.envelope, p8.measurement, p8.psi0, p8.T)
+    k7 = _counted(total, f"train_energy_seeds, 8q dense, {n_seeds} seeds, "
+                  f"backend 'apply'",
+                  {"k7_forward": epochs * n_seeds * n8,
+                   "k7_backward": epochs * n_seeds * n8},
+                  lambda: train_energy_seeds(
+                      *args, TrainConfig(n_epoch=epochs, backend="apply"),
+                      n_seeds=n_seeds, init_coeffs=init))
+    auto = _counted(total, f"train_energy_seeds, 8q dense, {n_seeds} seeds, "
+                    f"'auto' ('expm')", {},
+                    lambda: train_energy_seeds(
+                        *args, TrainConfig(n_epoch=epochs), n_seeds=n_seeds,
+                        init_coeffs=init))
+    diff = float(np.abs(k7.losses - auto.losses).max())
+    log(f"dense: 8q seed population on K7, mean loss "
+        f"{float(k7.losses[0].mean())!r} -> {float(k7.losses[-1].mean())!r};"
+        f" against 'expm' max abs diff {diff!r} (atol {DENSE_VALUE_ATOL})")
+    if not (diff <= DENSE_VALUE_ATOL
+            and np.all(k7.losses[-1] < k7.losses[0])):
+        fail("the 8q dense seed population on K7 differs from 'expm' or "
+             "its losses did not fall")
+
+    f64 = torch.float64
+    n_steps, T = 10, 1.0
+    ham, env, psi0, w, c = _dense_11q(torch.float32)
+    val, grad = _counted(total, "energy_and_grad, 11q dense (d = 2048), "
+                         "'apply' on the recurrence", {"apply_recurrence":
+                                                       n_steps},
+                         lambda: energy_and_grad(ham, env, w, c, psi0, T,
+                                                 n_steps, backend="apply"))
+    del ham
+    ham64, env, psi64, w64, c64 = _dense_11q(f64)
+    val_d, grad_d = energy_and_grad(ham64, env, w64, c64, psi64, T, n_steps,
+                                    backend="apply")
+    _against("dense: 11q f32 'apply' (recurrence) against the float64 "
+             "recurrence", val, grad.to(f64), val_d, grad_d,
+             DENSE_F64_VALUE_ATOL, DENSE_F64_GRAD_REL)
+    del ham64, grad_d
+    torch.cuda.empty_cache()
+
+    ring = dense_problems()["ring"]
+    n10 = reference_n_steps(10, 0.0, ring.T)
+    ham64 = dataclasses.replace(ring.ham, dtype=f64,
+                                H0=ring.ham.H0.astype(f64),
+                                Hs=ring.ham.Hs.astype(f64))
+    m64 = dataclasses.replace(ring.measurement,
+                              matrix=ring.measurement.matrix.astype(f64))
+    c10 = coeff_12q(ring, seed=10).to(f64)
+    step = lambda b: energy_and_grad(  # noqa: E731
+        ham64, ring.envelope, m64, c10, ring.psi0.astype(f64), ring.T, n10,
+        backend=b)
+    val, grad = _counted(total, "energy_and_grad, 10q dense float64, "
+                         "'apply' on the recurrence",
+                         {"apply_recurrence": n10}, lambda: step("apply"))
+    val_d, grad_d = step("expm")
+    _against("dense: 10q float64 'apply' (recurrence) against float64 "
+             "'expm'", val, grad, val_d, grad_d, DENSE_F64_VALUE_ATOL,
+             DENSE_F64_GRAD_REL)
+    log(f"dense: the 'apply' routes took {time.perf_counter() - t_phase:.1f}"
+        f" s")
+
+
+def phase_sharded_times():
+    """K4 at 24q T=1 (the sharded path's call) beside its plain version
+    and bound, and 30 such calls as a chain; the 24q sharded 'chunked'
+    grad step beside energy_and_grad on K5. Returns {kernel: (ms,
+    plain_ms, bound_ms, bound_by)} for K4."""
+    import torch
+    from diffquantum_tpu_torch.gradients.adjoint import energy_and_grad
+    from diffquantum_tpu_torch.ops import fused_chunked as tfc
+    from diffquantum_tpu_torch.ops import fused_product as tfp
+    from diffquantum_tpu_torch.ops.cpx import CP
+    from diffquantum_tpu_torch.parallel import make_mesh
+
+    out = {}
+    prob = frontier_problem(24)
+    n = 24
+    _, ud, tx, h0th, signs, qubits, kinds = packed_inputs(prob, 1, n)
+    plan = tfp._packed_plan(qubits, kinds, n)
+    udm = tfp.merge_ud_rows(ud[:, None].contiguous())
+    tx3 = tx[:, None].contiguous()
+    psi = CP(prob.psi0.re[None].contiguous(), prob.psi0.im[None].contiguous())
+    fwd = lambda: tfp._packed_forward_cuda(  # noqa: E731
+        psi.re, psi.im, udm, tx3, h0th, signs, plan, n, "K4")
+    o_re, o_im = fwd()
+    w = prob.measurement.diag
+    lam = CP(2.0 * w * o_re, 2.0 * w * o_im)
+    bwd = lambda: tfp._packed_backward_cuda(  # noqa: E731
+        o_re, o_im, lam.re, lam.im, udm, tx3, h0th, signs, plan, n, "K4")
+    args = (ud, tx, h0th, signs, qubits, n, kinds)
+    runs = {"forward": (fwd, lambda: tfc.chunked_evolve_plain(
+                prob.psi0, *args)),
+            "backward": (bwd, lambda: tfc._adjoint_chunked_plain(
+                CP(o_re[0], o_im[0]), CP(lam.re[0], lam.im[0]), *args))}
+    shape = (f"24q, T=1, {len(kinds)} ops, {ud.shape[1] - 1} diagonal terms, "
+             f"B=1")
+    for part, (kfn, pfn) in runs.items():
+        ms = cuda_ms(kfn, 30, warmup=3)
+        plain_ms = cuda_ms(pfn, 3, warmup=1)
+        bound = packed_bound(n, 1, kinds, ud.shape[1] - 1, signs.shape[0],
+                             part == "backward")
+        log(f"time: k4_{part} {ms!r} ms/chain (30 chains: {30 * ms!r} ms), "
+            f"plain version {plain_ms!r} ms, bound {bound[0]!r} ms "
+            f"({bound[1]}) ({shape})")
+        out[f"k4_{part}"] = (ms, plain_ms) + bound
+    del runs, fwd, bwd, o_re, o_im, lam
+    torch.cuda.empty_cache()
+
+    mesh = make_mesh({"state": 1})
+    coeff = torch.tensor(1e-3 * np.random.default_rng(0).standard_normal(
+        prob.envelope.coeff_shape), dtype=torch.float32, device=DEVICE)
+    ms = cuda_ms(lambda: _sharded_grad(mesh, prob, coeff, 30, "chunked"), 3,
+                 warmup=1)
+    ms_k5 = cuda_ms(lambda: energy_and_grad(
+        prob.ham, prob.envelope, prob.measurement, coeff, prob.psi0, prob.T,
+        30), 3, warmup=1)
+    log(f"time: 24q sharded 'chunked' 30-step grad step {ms!r} ms (30 K4 "
+        f"chains each way, world size 1), energy_and_grad on K5 {ms_k5!r} "
+        f"ms (CUDA events over 3 chained calls)")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     try:
         import torch
@@ -2169,6 +2584,7 @@ def main():
     errs.update(phase_packed_kernels())
     errs.update(phase_hop_kernels())
     errs.update(phase_dense_kernels())
+    errs.update(phase_chunked_kernels())
     launches = {k: 0 for k in COUNTERS}
     phase_main_path(launches)
     phase_seeds(launches)
@@ -2177,6 +2593,7 @@ def main():
     phase_frontier(launches)
     phase_hop_paths(launches)
     phase_dense_paths(launches)
+    phase_sharded_paths(launches)
     log(f"launches over all paths: {launches}")
     for name, n in launches.items():
         if n <= 0:
@@ -2185,6 +2602,10 @@ def main():
     times.update(phase_frontier_times())
     times.update(phase_hop_times())
     times.update(phase_dense_times())
+    times.update(phase_sharded_times())
+    import torch.distributed as dist
+    if dist.is_initialized():  # the one-rank world make_mesh started
+        dist.destroy_process_group()
 
     # kernel -> (source, TPU kernel it replaces)
     k12 = "diffquantum_tpu_torch/csrc/fused_product.cu"
@@ -2200,6 +2621,8 @@ def main():
                 "k2_backward": (k12, f"{fp}:733"),
                 "k3_forward": (pk, f"{fp}:1285"),
                 "k3_backward": (pk, f"{fp}:1364"),
+                "k4_forward": (pk, f"{fc}:202"),
+                "k4_backward": (pk, f"{fc}:327"),
                 "k5_forward": (pk, f"{fc}:695"),
                 "k5_backward": (pk, f"{fc}:766"),
                 "k6_forward": (pk, f"{fh}:612"),

@@ -15,4 +15,31 @@ tensors.
 Entry points take an explicit ``device`` (default ``"cuda"``) and raise
 when no card is present unless the caller asks for ``device="cpu"``.
 """
-__version__ = "0.1.0"
+from .version import __version__
+from .ops import cpx, linalg
+from .ops.cpx import CP
+from .ops.expm import (cexpm_apply_taylor, cexpm_pade13, cexpm_taylor,
+                       taylor_params)
+from .pulses.basis import basis_matrix
+from .pulses.envelope import SimpleEnvelope
+from .dynamics.hamiltonian import (ControlledHamiltonian, TermStructure,
+                                   classify_operator, detect_structure)
+from .dynamics.propagator import (calibrate_n_steps, evolve,
+                                  evolve_trajectory, reference_n_steps,
+                                  step_doubling_error, trotter)
+from .dynamics.product import evolve_product, evolve_product_fused
+from .measure import DiagonalTermSet, Measurement, PauliTermSet
+from . import models, parallel, train, utils  # noqa: F401 (convenience)
+
+__all__ = [
+    "__version__",
+    "cpx", "CP", "linalg",
+    "cexpm_taylor", "cexpm_pade13", "cexpm_apply_taylor", "taylor_params",
+    "basis_matrix",
+    "SimpleEnvelope",
+    "ControlledHamiltonian", "TermStructure",
+    "classify_operator", "detect_structure",
+    "evolve", "trotter", "reference_n_steps",
+    "step_doubling_error", "calibrate_n_steps",
+    "Measurement", "PauliTermSet",
+]

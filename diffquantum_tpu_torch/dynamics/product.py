@@ -30,7 +30,7 @@ B/G members share a coefficient set and grid. G = B is the JAX
 package's per-seed contract; G < B is how the MC estimator's branches
 share their pulses. The packed engines take one time grid; their
 per-member grids (the MC estimator's at 18+ qubits) raise (ROADMAP.md,
-Queue 1 item 16).
+Queue 1: MC and FD at 18-24 qubits).
 
 :func:`apply_structured_terms` gives H_k psi for every control term,
 matrix-free, for the MC estimator's perturbation gates.
@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import cpx
 from ..ops.cpx import CP
@@ -109,6 +110,18 @@ def split_structure_ext(ham: ControlledHamiltonian):
            oneq_idx, oneq_qubits, oneq_locals, hop_idx, hop_pairs)
     ham._memo["split"] = out
     return out
+
+
+def split_structure(ham: ControlledHamiltonian, hop_msg: str = None):
+    """(diag_idx, diag_rows, h0_diag, oneq_idx, oneq_qubits, oneq_locals)
+    of :func:`split_structure_ext`; raises on a 'hop' term, with
+    ``hop_msg`` when the caller names its own limitation."""
+    out = split_structure_ext(ham)
+    if out[6]:
+        raise ValueError(hop_msg or (
+            "this engine does not support 'hop' (XX+YY) terms; use the "
+            "product backend (evolve_product)"))
+    return out[:6]
 
 
 def _packed_form(ham: ControlledHamiltonian):
@@ -409,7 +422,7 @@ def packed_chain_inputs(ham: ControlledHamiltonian, envelope,
         raise NotImplementedError(
             "per-member time grids on the packed engines (the MC "
             "estimator's at 18+ qubits) are not ported yet (ROADMAP.md, "
-            "Queue 1 item 16)")
+            "Queue 1: MC and FD at 18-24 qubits)")
     theta_x, qubits, kinds = _rotation_inputs(ham, dtg, u_oneq, u_hop)
     signs, consts, scales, h0_vec = _packed_tables(ham, u_diag.device)
     half = 0.5 * dt
@@ -699,8 +712,10 @@ def evolve_product(ham: ControlledHamiltonian, envelope,
                    n_steps: int, dt_bound=None,
                    t_sample: str = "left") -> CP:
     """Strang-split evolution for diag + 1q (+ hop) structured H, eager
-    PyTorch, in ``ham.dtype`` on psi0's device. Autograd keeps every
-    step's intermediates (no rematerialization); the fused engine is the
+    PyTorch, in ``ham.dtype`` on psi0's device. Under autograd each step
+    is checkpointed, as the JAX package's scan is: the backward keeps one
+    state per step and recomputes the step's sub-steps, where keeping
+    them would cost a state per rotation. The fused engine is the
     O(1)-memory path. Per-member coefficients and times: see the module
     note."""
     _, _, _, _, oneq_qubits, oneq_locals, _, hop_pairs = \
@@ -727,18 +742,32 @@ def evolve_product(ham: ControlledHamiltonian, envelope,
     order = rot_ops + rot_ops[::-1] if palindromic else rot_ops
     frac = 0.5 * dt if palindromic else dt
 
-    psi = psi0.astype(rdt)
-    for t in range(n_steps):
-        theta_half = (0.5 * dt_col) * (h0_vec + torch.matmul(
-            u_diag[..., t], diag_table))
+    def step(re, im, ud, uq, uh):
+        theta_half = (0.5 * dt_col) * (h0_vec + torch.matmul(ud,
+                                                             diag_table))
         ph = CP(torch.cos(theta_half), -torch.sin(theta_half))
-        psi = cpx.mul(ph, psi)
+        psi = cpx.mul(ph, CP(re, im))
         for kind, i in order:
             if kind == "1q":
-                psi = apply_1q_pauli_rot(psi, frac * u_oneq[..., i, t],
+                psi = apply_1q_pauli_rot(psi, frac * uq[..., i],
                                          oneq_qubits[i], n, oneq_locals[i])
             else:
                 qi, qj = hop_pairs[i]
-                psi = apply_hop_rot(psi, frac * u_hop[..., i, t], qi, qj, n)
+                psi = apply_hop_rot(psi, frac * uh[..., i], qi, qj, n)
         psi = cpx.mul(ph, psi)
-    return psi
+        return psi.re, psi.im
+
+    psi = psi0.astype(rdt)
+    re, im = psi.re, psi.im
+    taped = torch.is_grad_enabled() and any(
+        isinstance(x, torch.Tensor) and x.requires_grad
+        for x in (re, im, u_diag, u_oneq, u_hop, dt_col))
+    # unbind: its backward stacks the steps' rows once, where indexing
+    # would zero-fill a gradient of the whole table per step
+    for rows in zip(*(x.unbind(-1) for x in (u_diag, u_oneq, u_hop))):
+        if taped:
+            re, im = checkpoint(step, re, im, *rows, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            re, im = step(re, im, *rows)
+    return CP(re, im)

@@ -13,8 +13,10 @@ step:
   steps are formed in one batched call (H_t does not depend on the
   state), then applied in order;
 - 'apply': exp(-i dt H_t) psi without forming the exponential, one
-  :func:`..ops.taylor_apply.taylor_apply` per step: K7 on the card, its
-  plain version on the CPU.
+  call per step on the route :func:`..ops.taylor_apply.apply_route`
+  names: K7 for float32 on the card with d <= 1024, the truncated-Taylor
+  recurrence in plain products otherwise (float64, larger d, the CPU),
+  as the JAX package's 'apply' runs at every size and dtype.
 
 H_t for the whole grid is one product of the amplitude table with the
 [n_controls, d*d] stack (:meth:`.hamiltonian.ControlledHamiltonian.at`),
@@ -31,7 +33,8 @@ import torch
 from ..ops import cpx
 from ..ops.cpx import CP
 from ..ops.expm import cexpm_taylor, taylor_params
-from ..ops.taylor_apply import substep_z, taylor_apply_zs
+from ..ops.taylor_apply import (apply_route, substep_z,
+                                taylor_apply_recurrence, taylor_apply_zs)
 from .hamiltonian import ControlledHamiltonian
 
 # The dense 'auto' rule of the JAX package: 'apply' at d >= 512 or for a
@@ -71,7 +74,7 @@ def _amplitude_bound(envelope) -> tuple[float, ...]:
         return tuple(abs(w) for w in envelope.omegas)
     raise NotImplementedError(
         "the dense backends' amplitude bound of a channel envelope is not "
-        "ported yet (ROADMAP.md, Queue 1 item 13)")
+        "ported yet (ROADMAP.md, Queue 1: ChannelEnvelope)")
 
 
 def dense_backend(ham: ControlledHamiltonian, batched: bool,
@@ -107,12 +110,15 @@ def _dense_steps(H: CP, psi: CP, dt, a_bound: float, tol: float,
         # exp(z H) psi with z = -i dt, per group
         zs = [substep_z(0.0, -(dt[g] if dt.ndim else dt), 2**s, psi.re)
               for g in range(n_groups)]
+        step = taylor_apply_zs if apply_route(
+            psi.re.device, psi.re.dtype, d) == "k7" \
+            else taylor_apply_recurrence
         h_steps = list(zip(H.re.reshape(-1, d, d).unbind(0),
                            H.im.reshape(-1, d, d).unbind(0)))
         ps = [CP(*p) for p in zip(psi.re.unbind(0), psi.im.unbind(0))]
         for t in range(n_steps):
-            ps = [taylor_apply_zs(CP(*h_steps[g * n_steps + t]), ps[g],
-                                  zs[g], order, 2**s)
+            ps = [step(CP(*h_steps[g * n_steps + t]), ps[g], zs[g],
+                       order, 2**s)
                   for g in range(n_groups)]
             if trajectory:
                 seen.append(CP(torch.stack([p.re for p in ps]),
@@ -187,9 +193,11 @@ def evolve(
     'product' engine (always, on the CPU). On a dense Hamiltonian, with
     or without structure tags, 'auto' takes 'apply' for d >= 512 or a
     batch of states, else 'expm' (:func:`dense_backend`). 'apply' on the
-    card is K7, which takes float32 and d <= 1024 and raises otherwise;
-    nothing falls back. The engine names 'packed', 'mega' and 'mega_hop'
-    are no backends, as in the JAX package. ``T0``/``T`` may be tensors
+    card is K7 for float32 and d <= 1024, and the plain recurrence for
+    other dtypes and sizes (:func:`..ops.taylor_apply.apply_route`,
+    chosen before any launch); nothing falls back. The engine names
+    'packed', 'mega' and 'mega_hop' are no backends, as in the JAX
+    package. ``T0``/``T`` may be tensors
     on the state's device, 0-dim or one per member (see
     :mod:`..product`), so a split time drawn on the card is never copied
     to the host. ``tol`` (Taylor truncation) and ``dt_bound`` (a static

@@ -35,7 +35,7 @@ def _objective(m, psi: CP) -> torch.Tensor:
     raise NotImplementedError(
         f"energy_and_grad takes a Measurement, a dense CP operator or a "
         f"diagonal tensor; {type(m).__name__} objectives are not ported "
-        "yet (ROADMAP.md, Queue 1 item 13)")
+        "yet (ROADMAP.md, Queue 1: Pauli-string objectives)")
 
 
 def _value_and_grad(loss_of_psi, ham, envelope, coeff, psi0, T, n_steps,

@@ -64,7 +64,7 @@ def check_sampled_size(ham, what: str):
         raise NotImplementedError(
             f"{what} at {ham.n_qubits} qubits: the MC and FD gradient "
             f"estimators at 18+ qubits are not ported yet (ROADMAP.md, "
-            f"Queue 1 item 16)")
+            f"Queue 1: MC and FD at 18-24 qubits)")
 
 
 def envelope_sensitivity(envelope, coeff: torch.Tensor, s, T,
@@ -101,7 +101,7 @@ def envelope_jacobian(envelope, coeff, s, T):
     ported: the simple model takes :func:`envelope_sensitivity`."""
     raise NotImplementedError(
         "envelope_jacobian serves ChannelEnvelope, which is not ported yet "
-        "(ROADMAP.md, Queue 1 item 13)")
+        "(ROADMAP.md, Queue 1: ChannelEnvelope)")
 
 
 def split_times(strategy: str, u: torch.Tensor, T) -> torch.Tensor:

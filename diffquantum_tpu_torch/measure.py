@@ -14,7 +14,8 @@ Noisy measurement adds the reference's Gaussian noise of scale |value|/5
 (:func:`measurement_noise`). Every draw comes from an explicit
 ``torch.Generator`` where the JAX package takes a PRNG key, so the two
 packages agree in distribution, not draw by draw. Pauli-string sums
-(``create_strings``) wait for ROADMAP.md, Queue 1 item 13, and raise.
+(``create_strings``) wait for ROADMAP.md, Queue 1: Pauli-string
+objectives, and raise.
 """
 from __future__ import annotations
 
@@ -31,8 +32,8 @@ from .utils.device import resolve_device
 NOISE_REL_SCALE = 0.2  # reference: np.random.normal(scale=|v|/5)
 
 _UNPORTED_MSG = ("Pauli-string measurement objectives (create_strings, "
-                 "PauliStringSet) are not ported yet (ROADMAP.md, Queue 1 "
-                 "item 13)")
+                 "PauliStringSet) are not ported yet (ROADMAP.md, Queue 1: "
+                 "Pauli-string objectives)")
 
 
 def exact_expectation(m: CP, psi: CP) -> torch.Tensor:

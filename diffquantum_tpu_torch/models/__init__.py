@@ -1,1 +1,3 @@
 from . import maxcut
+from . import vqe_h2
+from . import control

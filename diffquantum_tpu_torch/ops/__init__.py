@@ -1,1 +1,1 @@
-from . import cpx, linalg
+from . import cpx, expm, linalg

@@ -4,7 +4,7 @@ The JAX package keeps every complex quantity as a (re, im) pair of real
 arrays because the TPU and Pallas are real-valued. The port keeps the same
 representation: the CUDA kernels take f32 re/im planes, and the public
 functions keep the JAX package's layouts so the tests compare like with
-like. Only what the port's paths use is here.
+like.
 """
 from __future__ import annotations
 
@@ -41,6 +41,11 @@ class CP(NamedTuple):
 
     def reshape(self, *shape) -> "CP":
         return CP(self.re.reshape(*shape), self.im.reshape(*shape))
+
+    def __getitem__(self, idx) -> "CP":
+        """Index both planes alike (unpacking ``re, im = a`` still
+        iterates the fields)."""
+        return CP(self.re[idx], self.im[idx])
 
 
 def from_complex(a, dtype=torch.float32, device="cuda") -> CP:
@@ -90,6 +95,14 @@ def sub(a: CP, b: CP) -> CP:
     return CP(a.re - b.re, a.im - b.im)
 
 
+def neg(a: CP) -> CP:
+    return CP(-a.re, -a.im)
+
+
+def conj(a: CP) -> CP:
+    return CP(a.re, -a.im)
+
+
 def rscale(a: CP, s) -> CP:
     """Scale by a real scalar or tensor (broadcasting)."""
     return CP(a.re * s, a.im * s)
@@ -99,6 +112,11 @@ def cscale(a: CP, s_re, s_im) -> CP:
     """Scale by a complex scalar given as (re, im) reals (numbers or
     tensors)."""
     return CP(a.re * s_re - a.im * s_im, a.re * s_im + a.im * s_re)
+
+
+def muli(a: CP) -> CP:
+    """Multiply by +i."""
+    return CP(-a.im, a.re)
 
 
 def mulmi(a: CP) -> CP:

@@ -7,9 +7,10 @@
 - :func:`cexpm_pade13`: Padé(13) scaling-and-squaring, the solve on the
   real 2d x 2d embedding (``torch.linalg.solve``);
 - :func:`cexpm_apply_taylor`: ``exp(z H) psi`` without forming the
-  exponential, ``2^s`` substeps of ``order`` Taylor terms. It is the
-  plain version of K7 (:mod:`.taylor_apply`), which the dense 'apply'
-  backend launches on the card.
+  exponential, ``2^s`` substeps of ``order`` Taylor terms
+  (:func:`taylor_recurrence`). The recurrence is K7's function
+  (:mod:`.taylor_apply`), and the dense 'apply' backend's route for what
+  K7 does not take (:func:`.taylor_apply.apply_route`).
 """
 from __future__ import annotations
 
@@ -107,21 +108,30 @@ def cexpm_pade13(a: CP, norm_bound: float) -> CP:
     return r
 
 
-def cexpm_apply_taylor(h: CP, psi: CP, z_re, z_im, norm_bound: float,
-                       tol: float = 1e-7, max_order: int = 24) -> CP:
-    """``exp((z_re + i z_im) h) psi`` by truncated-Taylor products.
-
-    h: CP [d, d]; psi: CP [..., d]; z_re, z_im: numbers or 0-dim tensors
-    with ``|z| ||h|| <= norm_bound``, which fixes the substeps and order
-    (:func:`taylor_params`). Per substep, ``order`` products."""
-    order, s = taylor_params(norm_bound, tol, max_order)
-    r = 2**s
-    w_re, w_im = z_re / r, z_im / r
+def taylor_recurrence(h: CP, psi: CP, w_re, w_im, order: int,
+                      substeps: int) -> CP:
+    """``substeps`` substeps of ``order`` Taylor terms of ``exp(w h)``
+    applied to psi [..., d], w = (w_re, w_im) the substep's exponent:
+    per substep t_k = (w/k) h t_{k-1}, summed. Plain products that
+    autograd differentiates."""
     out = psi
-    for _ in range(r):
+    for _ in range(substeps):
         term = acc = out
         for k in range(1, order + 1):
             term = cpx.cscale(cpx.matvec(h, term), w_re / k, w_im / k)
             acc = cpx.add(acc, term)
         out = acc
     return out
+
+
+def cexpm_apply_taylor(h: CP, psi: CP, z_re, z_im, norm_bound: float,
+                       tol: float = 1e-7, max_order: int = 24) -> CP:
+    """``exp((z_re + i z_im) h) psi`` by truncated-Taylor products.
+
+    h: CP [d, d]; psi: CP [..., d]; z_re, z_im: numbers or 0-dim tensors
+    with ``|z| ||h|| <= norm_bound``, which fixes the substeps and order
+    (:func:`taylor_params`). Per substep, ``order`` products
+    (:func:`taylor_recurrence`)."""
+    order, s = taylor_params(norm_bound, tol, max_order)
+    r = 2**s
+    return taylor_recurrence(h, psi, z_re / r, z_im / r, order, r)

@@ -1,7 +1,9 @@
 """K5: the packed-phase Strang chain at 19-24 qubits, for one state or a
-seed population, and its exact adjoint.
+seed population, and its exact adjoint; K4: the same chain in the
+per-call form that the state-sharded engine runs one Strang step at a
+time.
 
-Port of the mega form of :mod:`diffquantum_tpu.ops.fused_chunked`:
+Port of :mod:`diffquantum_tpu.ops.fused_chunked`. The mega form:
 ``chunked_evolve_mega`` and ``chunked_evolve_mega_batched`` with their
 custom VJPs, whose Pallas kernels are ``_make_mega_fwd`` /
 ``_make_mega_bwd``. They compute K3's function
@@ -20,10 +22,20 @@ h0th [d] (zero cotangent) and signs [P, d] int32 (none). Gradients are
 ``_bwd_mega``'s: the merged rows' cotangents summed back onto the T
 steps, and d theta_x per step.
 
+The per-call form, :func:`chunked_evolve` (K4; Pallas kernels
+``_make_passA_fwd`` / ``_make_passB_fwd`` and their inverses
+``_make_passA_bwd`` / ``_make_passB_bwd``), has the single form's
+contract and computes K5's function: the JAX package keeps two forms
+only because the mega form compiles ~20x faster under Mosaic. Here both
+run on the same pass pair. At T = 1, the sharded engine's call, the
+chain is the leading half-phase with the step's rotations, then the
+trailing half-phase alone (nothing merges across calls).
+``K4_FWD_LAUNCHES`` / ``K4_BWD_LAUNCHES`` count its chains.
+
 Dispatch: CPU tensors take the plain version, CUDA tensors launch the
 kernel pair. ``K5_FWD_LAUNCHES`` / ``K5_BWD_LAUNCHES`` count the chains
-of both forms; ``K5_BATCHED_FWD_LAUNCHES`` / ``K5_BATCHED_BWD_LAUNCHES``
-the batched form's among them.
+of both mega forms; ``K5_BATCHED_FWD_LAUNCHES`` /
+``K5_BATCHED_BWD_LAUNCHES`` the batched form's among them.
 """
 from __future__ import annotations
 
@@ -40,6 +52,8 @@ from .fused_product import (_adjoint_packed_plain, _packed_plan,
 _LANE_QUBITS = 7
 _F_BITS = 10  # free row bits per pass-A slab on the TPU
 
+K4_FWD_LAUNCHES = 0
+K4_BWD_LAUNCHES = 0
 K5_FWD_LAUNCHES = 0
 K5_BWD_LAUNCHES = 0
 K5_BATCHED_FWD_LAUNCHES = 0
@@ -67,10 +81,18 @@ def check_size(n_qubits: int):
 def _check_kinds(x_qubits, kinds):
     kinds = tuple(kinds) if kinds else ("x",) * len(x_qubits)
     if any(k not in ("x", "y") for k in kinds):
-        raise ValueError("the mega engine takes X and Y ops only (hop "
+        raise ValueError("the chunked engine takes X and Y ops only (hop "
                          "drive sets at 19-24 qubits run on K6, "
                          "ops/fused_mega_hop.py)")
     return kinds
+
+
+def _count_k4(backward: bool):
+    global K4_FWD_LAUNCHES, K4_BWD_LAUNCHES
+    if backward:
+        K4_BWD_LAUNCHES += 1
+    else:
+        K4_FWD_LAUNCHES += 1
 
 
 def _count_single(backward: bool):
@@ -99,6 +121,39 @@ def _one(psi0: CP, ud, theta_x, what="chunked_evolve_mega") -> tuple:
     return (CP(psi0.re[None], psi0.im[None]), ud[:, None], theta_x[:, None])
 
 
+def _single_chain(psi0: CP, ud, theta_x, h0th, signs, x_qubits: tuple,
+                  n_qubits: int, kinds, count, what: str) -> CP:
+    """One state's packed chain through :func:`run_packed_chain`, as a
+    population of one, counted by ``count``."""
+    check_size(n_qubits)
+    kinds = _check_kinds(x_qubits, kinds)
+    p, u, t = _one(psi0, ud, theta_x, what)
+    out = run_packed_chain(p, u, t, h0th, signs,
+                           _packed_plan(x_qubits, kinds, n_qubits),
+                           len(x_qubits), n_qubits, count, what)
+    return CP(out.re[0], out.im[0])
+
+
+def chunked_evolve(psi0: CP, ud: torch.Tensor, theta_x: torch.Tensor,
+                   h0th: torch.Tensor, signs: torch.Tensor, x_qubits: tuple,
+                   n_qubits: int, kinds: tuple = None,
+                   fast_math: bool = False) -> CP:
+    """K4: psi(T) of one state through the packed chain, differentiable in
+    psi0, ud and theta_x; the JAX package's per-call form.
+
+    psi0: CP [2^n] f32; ud: [T, n_diag+1] scaled diagonal controls (slot
+    k = dt/2 u_k w_k, the last slot the offset); theta_x: [T, n_x]; h0th:
+    [2^n] drift half-angles (zero cotangent); signs: [P, 2^n] int32 sign
+    bit-planes (no cotangent); kinds 'x' or 'y'. Tables are contiguous (a
+    slice of ``signs`` along the amplitudes is not until copied).
+    ``fast_math`` changes nothing. One chain of pass launches on the card
+    (and one for the adjoint), counted in ``K4_FWD_LAUNCHES`` /
+    ``K4_BWD_LAUNCHES``."""
+    del fast_math
+    return _single_chain(psi0, ud, theta_x, h0th, signs, x_qubits,
+                         n_qubits, kinds, _count_k4, "K4")
+
+
 def chunked_evolve_mega(psi0: CP, ud: torch.Tensor, theta_x: torch.Tensor,
                         h0th: torch.Tensor, signs: torch.Tensor,
                         x_qubits: tuple, n_qubits: int, kinds: tuple = None,
@@ -107,13 +162,8 @@ def chunked_evolve_mega(psi0: CP, ud: torch.Tensor, theta_x: torch.Tensor,
     launches (and one for the adjoint), differentiable in psi0, ud and
     theta_x. ``fast_math`` changes nothing (no matmul to truncate)."""
     del fast_math
-    check_size(n_qubits)
-    kinds = _check_kinds(x_qubits, kinds)
-    p, u, t = _one(psi0, ud, theta_x)
-    out = run_packed_chain(p, u, t, h0th, signs,
-                           _packed_plan(x_qubits, kinds, n_qubits),
-                           len(x_qubits), n_qubits, _count_single, "K5")
-    return CP(out.re[0], out.im[0])
+    return _single_chain(psi0, ud, theta_x, h0th, signs, x_qubits,
+                         n_qubits, kinds, _count_single, "K5")
 
 
 def chunked_evolve_mega_batched(psi0: CP, ud: torch.Tensor,
@@ -168,3 +218,8 @@ def _adjoint_mega_plain(psi_T: CP, lam: CP, ud, theta_x, h0th, signs,
                                          u, t, h0th, signs, x_qubits,
                                          n_qubits, kinds)
     return CP(gp.re[0], gp.im[0]), gud[:, 0], gtx[:, 0]
+
+
+# K4 computes K5's function: its plain versions are the single form's.
+chunked_evolve_plain = chunked_evolve_mega_plain
+_adjoint_chunked_plain = _adjoint_mega_plain

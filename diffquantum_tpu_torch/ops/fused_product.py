@@ -764,6 +764,28 @@ def fused_product_evolve_batched(psi0: CP, theta_half: torch.Tensor,
     return CP(re, im)
 
 
+def fused_rot_block(psi: CP, theta_x: torch.Tensor, x_qubits: tuple,
+                    n_qubits: int, kinds: tuple = None,
+                    fast_math: bool = False) -> CP:
+    """One Strang rotation block with no phase, the sharded engine's
+    'fused' local step: K1 for a state [2^n] with theta_x [n_x], K2 for a
+    batch [B, 2^n] with theta_x [B, n_x] (or [1, n_x], one row for every
+    member), each at T = 1 with a zero phase row (a T = 1 chain applies
+    exactly its step's rotations, so the adjoint is the kernels' own).
+    Launches count as K1's or K2's."""
+    d = 1 << n_qubits
+    zero = dict(dtype=torch.float32, device=psi.re.device)
+    tx = theta_x.to(torch.float32)[None].contiguous()
+    if psi.ndim == 1:
+        return fused_product_evolve(psi, torch.zeros((1, d), **zero), tx,
+                                    tuple(x_qubits), n_qubits, kinds,
+                                    fast_math)
+    # one shared zero row serves every member (G = 1 group rows)
+    return fused_product_evolve_batched(psi, torch.zeros((1, 1, d), **zero),
+                                        tx, tuple(x_qubits), n_qubits,
+                                        kinds, fast_math)
+
+
 # ---------------------------------------------------------------------------
 # K3: the packed-phase chain, plain version
 # ---------------------------------------------------------------------------

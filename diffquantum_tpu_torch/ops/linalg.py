@@ -1,12 +1,13 @@
-"""Host-side (numpy) operator helpers — a copy of the parts of
-:mod:`diffquantum_tpu.ops.linalg` the port uses. They run once at problem
-construction, not on the hot path. Qubit 0 is the most significant bit of
+"""Host-side (numpy) operator helpers — a copy of
+:mod:`diffquantum_tpu.ops.linalg`. They run once at problem construction,
+not on the hot path. Qubit 0 is the most significant bit of
 an amplitude index (the kron ordering)."""
 from __future__ import annotations
 
 import functools
 
 import numpy as np
+import torch
 
 I2 = np.eye(2, dtype=np.complex128)
 X = np.array([[0.0, 1.0], [1.0, 0.0]], dtype=np.complex128)
@@ -66,17 +67,41 @@ def multi_kron(*ops) -> np.ndarray:
     return ret
 
 
+def multi_dot(*ops):
+    """Chained matrix product, left to right."""
+    ret = None
+    for q in ops:
+        ret = q if ret is None else ret @ q
+    return ret
+
+
 def pauli_string(spec: str) -> np.ndarray:
     """Dense operator of a Pauli string such as ``"ZIZI"``."""
     return multi_kron(*[PAULIS[c] for c in spec])
 
 
-def op_on_qubits(op: np.ndarray, qubits, n_qubits: int) -> np.ndarray:
-    """``op`` on each qubit in ``qubits``, identity elsewhere."""
-    return multi_kron(*[op if j in qubits else I2 for j in range(n_qubits)])
+def op_on_qubits(op: np.ndarray, qubits, n_qubits: int,
+                 op_single: np.ndarray | None = None) -> np.ndarray:
+    """``op`` (or ``op_single`` when given) on each qubit in ``qubits``,
+    identity elsewhere."""
+    single = op if op_single is None else op_single
+    return multi_kron(*[single if j in qubits else I2
+                        for j in range(n_qubits)])
 
 
 def basis_state(index: int, dim: int) -> np.ndarray:
     psi = np.zeros((dim,), dtype=np.complex128)
     psi[index] = 1.0
     return psi
+
+
+def dagger(a):
+    """Conjugate transpose of the last two axes (a numpy array or a
+    complex torch tensor)."""
+    if isinstance(a, torch.Tensor):
+        return a.conj().transpose(-1, -2)
+    return np.conjugate(np.swapaxes(a, -1, -2))
+
+
+def is_hermitian(a: np.ndarray, atol: float = 1e-9) -> bool:
+    return bool(np.allclose(a, np.conjugate(np.asarray(a)).T, atol=atol))

@@ -14,6 +14,14 @@ plain versions beside them (:func:`taylor_apply_plain`,
 :func:`taylor_apply_backward_plain`); a CUDA tensor always launches the
 kernel or raises.
 
+The 'apply' backend chooses its route per chain before any launch
+(:func:`apply_route`): K7 for float32 on the card with d <= 1024, and
+otherwise the truncated-Taylor recurrence in plain products
+(:func:`taylor_apply_recurrence`, ``ops/expm.py::taylor_recurrence``),
+which is what the JAX package's 'apply' runs at every size and dtype.
+The recurrence is the route for the shapes K7 does not take, not a
+fallback: no failed build or launch reaches it.
+
 Real-plane cotangents: a loss L of the output planes gives
 ``g = dL/dout_re + i dL/dout_im``; the returned ``(gH_re, gH_im)`` and
 ``(gpsi_re, gpsi_im)`` are the gradients of the input planes, so that
@@ -30,13 +38,25 @@ import torch
 
 from . import _build, cpx
 from .cpx import CP
+from .expm import taylor_recurrence
 
 MAX_D = 1024  # the largest dimension K7 takes (the TPU kernel's _MAX_D)
 
 # launches since the last reset (chip_smoke.py sets them to 0 around a
-# path and reads them after it)
+# path and reads them after it); the recurrence route counts its steps
 K7_FWD_LAUNCHES = 0
 K7_BWD_LAUNCHES = 0
+APPLY_RECURRENCE_CALLS = 0
+
+
+def apply_route(device, dtype, d: int) -> str:
+    """The dense 'apply' step's route from (device, dtype, d): 'k7' for
+    float32 planes on a CUDA card with d <= ``MAX_D``, else
+    'recurrence'."""
+    if torch.device(device).type == "cuda" and dtype == torch.float32 \
+            and d <= MAX_D:
+        return "k7"
+    return "recurrence"
 
 
 def _check(h: CP, psi: CP, zs: torch.Tensor):
@@ -55,14 +75,14 @@ def _check(h: CP, psi: CP, zs: torch.Tensor):
     if psi.re.is_cuda:
         dts = {t.dtype for t in (h.re, h.im, psi.re, psi.im, zs)}
         if dts != {torch.float32}:
-            raise NotImplementedError(
+            raise ValueError(
                 f"K7 takes float32 planes on the card, got "
-                f"{sorted(map(str, dts))}; a float64 dense 'apply' on the "
-                "card is not ported (ROADMAP.md, Queue 1 item 12)")
+                f"{sorted(map(str, dts))}; the dense 'apply' backend "
+                "routes other dtypes to the recurrence (apply_route)")
         if d > MAX_D:
-            raise NotImplementedError(
-                f"K7 takes d <= {MAX_D}, got {d}; a larger dense 'apply' "
-                "on the card is not ported (ROADMAP.md, Queue 1 item 12)")
+            raise ValueError(
+                f"K7 takes d <= {MAX_D}, got {d}; the dense 'apply' "
+                "backend routes larger d to the recurrence (apply_route)")
 
 
 # ---------------------------------------------------------------------------
@@ -74,15 +94,7 @@ def taylor_apply_plain(h: CP, psi: CP, zs: torch.Tensor, order: int,
                        substeps: int) -> CP:
     """K7's forward in plain PyTorch: psi [B, d], zs the per-substep
     (w_re, w_im)."""
-    w_re, w_im = zs[0], zs[1]
-    x = psi
-    for _ in range(substeps):
-        term = acc = x
-        for k in range(1, order + 1):
-            term = cpx.cscale(cpx.matvec(h, term), w_re / k, w_im / k)
-            acc = cpx.add(acc, term)
-        x = acc
-    return x
+    return taylor_recurrence(h, psi, zs[0], zs[1], order, substeps)
 
 
 def _outer(g: CP, t: CP) -> CP:
@@ -251,6 +263,17 @@ def taylor_apply(h: CP, psi: CP, z_re, z_im, order: int,
     launch on the card; differentiable in H and psi."""
     return taylor_apply_zs(h, psi, substep_z(z_re, z_im, substeps, psi.re),
                            order, substeps)
+
+
+def taylor_apply_recurrence(h: CP, psi: CP, zs: torch.Tensor, order: int,
+                            substeps: int) -> CP:
+    """The 'recurrence' route of :func:`apply_route`: :func:`taylor_apply`'s
+    function (zs as :func:`taylor_apply_zs`) in plain products on any
+    device and dtype, differentiated by autograd; counted in
+    ``APPLY_RECURRENCE_CALLS``."""
+    global APPLY_RECURRENCE_CALLS
+    APPLY_RECURRENCE_CALLS += 1
+    return taylor_recurrence(h, psi, zs[0], zs[1], order, substeps)
 
 
 def taylor_apply_zs(h: CP, psi: CP, zs: torch.Tensor, order: int,

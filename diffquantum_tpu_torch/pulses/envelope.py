@@ -3,7 +3,7 @@
 ``u_k(t) = (2 sigmoid(sum_j c_kj phi_j(t)) - 1) * omega_k``, a bounded
 drive in ``[-omega_k, +omega_k]``, for the whole time grid at once.
 ``ChannelEnvelope`` (the carrier-modulated channel model) is not ported
-yet (ROADMAP.md, Queue 1 item 13)."""
+yet (ROADMAP.md, Queue 1: ChannelEnvelope)."""
 from __future__ import annotations
 
 import dataclasses

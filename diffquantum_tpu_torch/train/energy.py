@@ -29,7 +29,8 @@ There is no analog of the JAX epoch-block ``lax.scan``: PyTorch runs
 eagerly. Random draws (split times, shots, noise) come from a
 ``torch.Generator`` on the state's device seeded with ``config.seed + 1``,
 not from the JAX key schedule. Not ported yet, and raising: LR schedules
-and checkpoint/resume (ROADMAP.md, Queue 1 item 20).
+and checkpoint/resume (ROADMAP.md, Queue 1: LR schedules and
+checkpoint/resume).
 """
 from __future__ import annotations
 
@@ -69,7 +70,8 @@ def make_optimizer(config: TrainConfig, params) -> torch.optim.Optimizer:
         if config.lr_schedule in ("cosine", "warmup_cosine"):
             raise NotImplementedError(
                 f"lr_schedule={config.lr_schedule!r} is not ported yet "
-                "(ROADMAP.md, Queue 1 item 20)")
+                "(ROADMAP.md, Queue 1: LR schedules and "
+                "checkpoint/resume)")
         raise ValueError(f"unknown lr_schedule {config.lr_schedule!r}")
     if config.optimizer == "adam":
         return torch.optim.Adam(params, lr=config.lr, betas=(0.9, 0.999),
@@ -122,8 +124,8 @@ def train_energy(
         check_sampled_size(ham, f"train_energy(grad_mode={mode!r})")
     if config.checkpoint_dir:
         raise NotImplementedError(
-            "checkpoint/resume is not ported yet (ROADMAP.md, Queue 1 "
-            "item 20)")
+            "checkpoint/resume is not ported yet (ROADMAP.md, Queue 1: LR "
+            "schedules and checkpoint/resume)")
     log = logger or NullLogger()
     log.write_text("!!!! train_energy ========")
     log.log_config({f.name: getattr(config, f.name)

@@ -1,10 +1,12 @@
-"""Guards of the PyTorch port: it imports neither JAX nor the JAX package,
-its entry points refuse to run on the CPU unless asked, what is not
-ported raises NotImplementedError instead of falling back (device meshes,
-LR schedules, checkpoints, Pauli-string and channel objectives, dense
-seed populations, the MC and FD estimators at 18+ qubits), the JAX
-package's engine names are no backends, the dense 'auto' rule and the
-CPU's plain path of 'apply', and chip_smoke.py fails without a card."""
+"""Guards of the PyTorch port: it imports neither JAX nor the JAX package
+(the sharded engine and its collectives included), its entry points
+refuse to run on the CPU unless asked (make_mesh too), what is not
+ported raises NotImplementedError instead of falling back (Pauli-string
+objectives on the sharded engine, LR schedules, checkpoints,
+Pauli-string and channel objectives, the MC and FD estimators at 18+
+qubits), the JAX package's engine names are no backends, the dense
+'auto' rule and the CPU's route of 'apply', a mesh larger than the
+world raises, and chip_smoke.py fails without a card."""
 import ast
 import os
 import pathlib
@@ -29,6 +31,8 @@ from diffquantum_tpu_torch.models import maxcut as tmaxcut
 from diffquantum_tpu_torch.ops import linalg
 from diffquantum_tpu_torch.ops.cpx import CP
 from diffquantum_tpu_torch.parallel.mesh import make_mesh, train_energy_seeds
+from diffquantum_tpu_torch.parallel.sharded_state import \
+    sharded_strings_expectation
 from diffquantum_tpu_torch.pulses.envelope import SimpleEnvelope
 from diffquantum_tpu_torch.train.config import TrainConfig
 from diffquantum_tpu_torch.train.energy import train_energy
@@ -43,13 +47,15 @@ def _forbidden(name: str) -> bool:
 
 def test_port_imports_no_jax():
     files = sorted((REPO / "diffquantum_tpu_torch").rglob("*.py"))
-    files += [REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch_step.py"]
+    files += [REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch_step.py",
+              REPO / "scripts" / "sharded_multicard.py"]
     assert len(files) > 15
     names = {str(f.relative_to(REPO / "diffquantum_tpu_torch"))
              for f in files if "diffquantum_tpu_torch" in f.parts}
     assert {"ops/expm.py", "ops/taylor_apply.py", "train/gate.py",
             "train/fidelity.py", "models/control.py",
-            "models/vqe_h2.py"} <= names
+            "models/vqe_h2.py", "parallel/comm.py",
+            "parallel/sharded_state.py"} <= names
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
@@ -68,7 +74,7 @@ def no_card(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["build_maxcut", "init_coeff", "convert",
-                                   "measurement"])
+                                   "measurement", "make_mesh"])
 def test_entry_points_need_a_card_unless_asked(no_card, entry):
     env = SimpleEnvelope(basis="bspline", n_basis=4, omegas=(1.0,))
     call = {
@@ -77,6 +83,7 @@ def test_entry_points_need_a_card_unless_asked(no_card, entry):
         "init_coeff": lambda: env.init_coeff(torch.Generator()),
         "convert": lambda: convert.params_from_numpy(np.zeros((1, 4))),
         "measurement": lambda: Measurement.create_diagonal(np.zeros(4)),
+        "make_mesh": lambda: make_mesh({"state": 1}),
     }[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
@@ -130,12 +137,11 @@ def test_unported_features_raise(what):
     run = lambda c: train_energy(p.ham, p.envelope, p.measurement,  # noqa
                                  p.psi0, p.T, c)
     call = {
-        "mesh": lambda: train_energy_seeds(
-            p.ham, p.envelope, p.measurement, p.psi0, p.T, cfg, n_seeds=2,
-            mesh=object()),
+        # the sharded engine's Pauli-string observable
+        "mesh": lambda: sharded_strings_expectation(p.psi0, None, None),
         "cosine": lambda: run(cfg.replace(lr_schedule="cosine")),
         "checkpoint": lambda: run(cfg.replace(checkpoint_dir="ckpt")),
-        # the MC estimator's batch at 18 qubits (item 16)
+        # the MC estimator's batch at 18 qubits
         "batched_18q": lambda: mc_energy_grad_batch(
             _ham(18), SimpleEnvelope(basis="bspline", n_basis=4,
                                      omegas=(1.0, 1.0)),
@@ -146,9 +152,10 @@ def test_unported_features_raise(what):
             p.envelope, torch.zeros(p.envelope.coeff_shape), 0.5, p.T),
         "strings": lambda: Measurement.create_strings(
             [("ZZ", 1.0)], device="cpu"),
+        # dense seed populations run; their LR schedules do not yet
         "dense_seeds": lambda: train_energy_seeds(
             dense.ham, dense.envelope, dense.measurement, dense.psi0,
-            dense.T, cfg, n_seeds=2),
+            dense.T, cfg.replace(lr_schedule="cosine"), n_seeds=2),
     }[what]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         call()
@@ -160,7 +167,7 @@ def test_unported_features_raise(what):
 def test_sampled_estimators_raise_at_18_qubits(entry):
     """The MC and FD estimators stop at 17 qubits until their 18+ qubit
     path (samples one after another, as the JAX package runs them) is
-    held on the card (ROADMAP.md, Queue 1 item 16)."""
+    held on the card (ROADMAP.md, Queue 1: MC and FD at 18-24 qubits)."""
     ham = _ham(18)
     env = SimpleEnvelope(basis="bspline", n_basis=4, omegas=(1.0, 1.0))
     c = torch.zeros(env.coeff_shape)
@@ -182,7 +189,8 @@ def test_sampled_estimators_raise_at_18_qubits(entry):
             ham, env, meas, psi0, 1.0,
             TrainConfig(n_epoch=1, grad_mode="mc"), n_seeds=2),
     }[entry]
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(NotImplementedError,
+                       match="Queue 1: MC and FD at 18-24 qubits"):
         call()
 
 
@@ -215,8 +223,8 @@ def test_dense_auto_rule_on_cpu():
 
 
 def test_apply_on_cpu_never_loads_the_kernels(monkeypatch):
-    """'apply' on a CPU state runs K7's plain pair and never builds or
-    loads a kernel library, forward or backward."""
+    """'apply' on a CPU state takes the recurrence route and never builds
+    or loads a kernel library, forward or backward."""
     from diffquantum_tpu_torch.gradients.adjoint import energy_and_grad
     from diffquantum_tpu_torch.ops import _build
 
@@ -232,8 +240,10 @@ def test_apply_on_cpu_never_loads_the_kernels(monkeypatch):
 
 
 def test_make_mesh_raises():
-    with pytest.raises(NotImplementedError, match="item 18"):
-        make_mesh({"data": 4})
+    """A mesh whose axis sizes do not multiply to the world size raises,
+    as the JAX package's does past its devices (here a world of one)."""
+    with pytest.raises(ValueError, match="needs 4 ranks, the world has 1"):
+        make_mesh({"data": 4}, device="cpu")
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
