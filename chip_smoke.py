@@ -21,7 +21,9 @@ at the first phase that does not hold:
    through K6's entry points (the palindromic A/B schedule of hop drive
    sets, phase_hop_kernels: the molecule drive set at 19, 20 and 24
    qubits, a set whose B ops commute, T = 1, B = 4); K7
-   (csrc/taylor_apply.cu, phase_dense_kernels); and the pair through
+   (csrc/taylor_apply.cu, phase_dense_kernels: the paths' shapes, both
+   sides of its two launch configurations' boundary and B = 64); and the
+   pair through
    K4's entry point, the per-call chain of the sharded engine
    (phase_chunked_kernels: 12 qubits T = 1, the 20-qubit random graph at
    T = 1 and 30, 24 qubits T = 1, a palindromic X/Y plan);
@@ -77,8 +79,12 @@ at the first phase that does not hold:
    (and batched, B = 8 at 20), the 18/20/24-qubit grad steps and the
    20-qubit 8-seed epoch, with the host's time to enqueue one chain; K6
    on the molecule drive set at 20 qubits (and batched, B = 4) and 24,
-   and the 20-qubit molecule grad step; K7 and the dense steps; K4 at 24
-   qubits T = 1 and the 24-qubit sharded grad step beside the one on K5;
+   and the 20-qubit molecule grad step; K7 at the nine shapes of its
+   kernel check, forward and backward, each beside its bound, its plain
+   version and matrix_exp + product (and that route's VJP), then the 10q
+   dense grad step, the CNOT epoch, the 4q demo MC epoch and the 8q dense
+   seed epoch; K4 at 24 qubits T = 1 and the 24-qubit sharded grad step
+   beside the one on K5;
 5. a JSON line of per-kernel numbers, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -1708,7 +1714,9 @@ def phase_times():
 # K7 against its plain version on the card: forward atol on states of unit
 # norm, gradients (gH, gpsi) relative to their max-norm. An H100 run read
 # 8.9e-8 forward at worst (CNOT columns, d = 4) and 2.6e-6 on dH_im (10q
-# MC branches, d = 1024, B = 40), so the limits sit ~4.5x and ~3.8x above.
+# MC branches, d = 1024, B = 40), so the limits sit ~4.5x and ~3.8x above;
+# the two-configuration kernels read 1.1e-7 (d = 64, B = 5) and 2.7e-6
+# (d = 1024, B = 64) at the nine shapes, ~3.7x below both.
 TOL_K7 = {"fwd": 4e-7, "grad": 1e-5}
 # The dense paths through K7 ('apply') against the dense 'expm' backend
 # (torch.matmul, no kernel) on the card, f32 both: value atol, gradient
@@ -1799,26 +1807,29 @@ def k7_inputs(ham, envelope, T, n_steps, b, seed):
     return CP(h.re.contiguous(), h.im.contiguous()), psi, g, zs, order, 2**s
 
 
-def _unaligned_inputs():
-    """tests/test_pallas.py's unaligned case: d = 48, B = 5, a random
-    Hermitian H, z = -0.31 i."""
+def _hermitian_inputs(d, b, seed):
+    """A random Hermitian H [d, d], B random states and cotangents, z =
+    -0.31 i: tests/test_pallas.py's unaligned case at d = 48, B = 5,
+    seed 0."""
     import torch
     from diffquantum_tpu_torch.ops import taylor_apply as ta
     from diffquantum_tpu_torch.ops.cpx import CP
     from diffquantum_tpu_torch.ops.expm import taylor_params
-    rng = np.random.default_rng(0)
-    a = rng.standard_normal((48, 48)) + 1j * rng.standard_normal((48, 48))
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((d, d)) + 1j * rng.standard_normal((d, d))
     h = (a + a.conj().T) / 2
     order, s = taylor_params(0.31 * np.linalg.norm(h, 2))
     f = lambda x: torch.tensor(x, dtype=torch.float32, device=DEVICE)  # noqa
-    psi = _random_cp(rng, (5, 48), 0.1)
-    g = _random_cp(rng, (5, 48), 0.1)
+    psi = _random_cp(rng, (b, d), 0.1)
+    g = _random_cp(rng, (b, d), 0.1)
     zs = ta.substep_z(0.0, -0.31, 2**s, psi.re)
     return CP(f(h.real), f(h.imag)), psi, g, zs, order, 2**s
 
 
 def dense_kernel_cases():
-    """(label, inputs) of K7 at the shapes of this slice's paths."""
+    """(label, inputs) of K7 at the shapes of this slice's paths, the
+    boundary of its two launch configurations (d = 64 block-resident,
+    d = 65 row-split) and the 10q MC branches at B = 64."""
     p = dense_problems()
     from diffquantum_tpu_torch.pulses.envelope import SimpleEnvelope
     had, two, demo, ring = p["hadamard"], p["two"], p["demo"], p["ring"]
@@ -1830,17 +1841,21 @@ def dense_kernel_cases():
          k7_inputs(two[0], cnot_env, 4.0, 50, 4, 4)),
         ("4q demo MC branches, d=16 B=16",
          k7_inputs(demo.ham, demo.envelope, demo.T, 100, 16, 16)),
-        ("unaligned, d=48 B=5", _unaligned_inputs()),
+        ("unaligned, d=48 B=5", _hermitian_inputs(48, 5, 0)),
+        ("boundary, d=64 B=5", _hermitian_inputs(64, 5, 64)),
+        ("boundary, d=65 B=5", _hermitian_inputs(65, 5, 65)),
         ("10q dense MaxCut state, d=1024 B=1",
          k7_inputs(ring.ham, ring.envelope, ring.T, 30, 1, 10)),
         ("10q MC branches, d=1024 B=40",
          k7_inputs(ring.ham, ring.envelope, ring.T, 30, 40, 40)),
+        ("10q branches, d=1024 B=64",
+         k7_inputs(ring.ham, ring.envelope, ring.T, 30, 64, 64)),
     ]
 
 
 def phase_dense_kernels():
     """K7 forward and backward against the plain versions on the card, at
-    the six shapes of dense_kernel_cases. Returns {'k7': (forward,
+    the nine shapes of dense_kernel_cases. Returns {'k7': (forward,
     backward) max abs errors} at the 10q state's shape."""
     import torch
     from diffquantum_tpu_torch.ops import taylor_apply as ta
@@ -2075,28 +2090,18 @@ def dense_control_paths(total):
         fail("H2 VQE energy did not fall")
 
 
-def phase_dense_times():
-    """K7 at d = 1024 (B = 1 and 40) beside its plain version, its bound
-    and matrix_exp + one product; the 10q dense grad step (and its H(t)
-    build), a CNOT train_gate epoch and a 4q demo MC epoch. Returns
-    {kernel: (ms, plain_ms, bound_ms, bound_by, library_ms)} at B = 1."""
+def k7_case_times(cases, iters=20):
+    """K7 forward and backward at each (label, inputs) of ``cases``, beside
+    the plain versions, the bound and the library route (matrix_exp of
+    z H to rounding, then one product; for the backward that route's VJP
+    in dH and dpsi by autograd). Returns {label: {"forward": (ms,
+    plain_ms, bound_ms, bound_by, library_ms), "backward": (...)}}."""
     import torch
-    from diffquantum_tpu_torch.gradients.adjoint import energy_and_grad
     from diffquantum_tpu_torch.ops import taylor_apply as ta
-    from diffquantum_tpu_torch.pulses.envelope import SimpleEnvelope
-    from diffquantum_tpu_torch.train import TrainConfig, train_energy
-    from diffquantum_tpu_torch.train import train_gate
 
-    p = dense_problems()
-    ring = p["ring"]
-    out, t_phase = {}, time.perf_counter()
-    for b in (1, 40):
-        h, psi, g, zs, order, sub = k7_inputs(ring.ham, ring.envelope,
-                                              ring.T, 30, b, 100 + b)
-        o_re, o_im = ta._forward_cuda(h.re, h.im, psi.re, psi.im, zs, order,
-                                      sub)
-        # the library yardstick: exp(z H) to rounding, then one product;
-        # for the backward, that route's VJP in dH and dpsi by autograd
+    out = {}
+    for label, (h, psi, g, zs, order, sub) in cases:
+        b, d = psi.re.shape
         zc = complex(float(zs[0]), float(zs[1])) * sub
         hc = torch.complex(h.re, h.im).requires_grad_(True)
         pc = torch.complex(psi.re, psi.im).requires_grad_(True)
@@ -2104,7 +2109,6 @@ def phase_dense_times():
         lib = {"forward": lambda: pc @ torch.linalg.matrix_exp(zc * hc).T,
                "backward": lambda: torch.autograd.grad(
                    pc @ torch.linalg.matrix_exp(zc * hc).T, (hc, pc), gc)}
-        lib_ms = {k: cuda_ms(f, 10, 2) for k, f in lib.items()}
         runs = {
             "forward": (lambda: ta._forward_cuda(h.re, h.im, psi.re, psi.im,
                                                  zs, order, sub),
@@ -2116,24 +2120,41 @@ def phase_dense_times():
                          lambda: ta.taylor_apply_backward_plain(
                              h, psi, g, zs, order, sub)),
         }
+        out[label] = {}
         for part, (kfn, pfn) in runs.items():
-            ms = cuda_ms(kfn, 20, 2)
+            ms = cuda_ms(kfn, iters, 2)
             plain_ms = cuda_ms(pfn, 3, 1)
-            bound = taylor_bound(1024, b, order, sub, part == "backward")
+            lib_ms = cuda_ms(lib[part], 10, 2)
+            bound = taylor_bound(d, b, order, sub, part == "backward")
             what = "matrix_exp + product" + (
                 ", forward and VJP" if part == "backward" else "")
-            log(f"time: k7_{part} {ms!r} ms/launch, plain version "
+            log(f"time: k7_{part} [{label}] {ms!r} ms/launch, plain version "
                 f"{plain_ms!r} ms, bound {bound[0]!r} ms ({bound[1]}), "
-                f"{what} {lib_ms[part]!r} ms (d=1024, B={b}, order "
-                f"{order}, {sub} substeps)")
-            if b == 1:
-                out[f"k7_{part}"] = (ms, plain_ms) + bound + (lib_ms[part],)
-        del o_re, o_im
+                f"{what} {lib_ms!r} ms (order {order}, {sub} substeps)")
+            out[label][part] = (ms, plain_ms) + bound + (lib_ms,)
+    return out
 
+
+def dense_path_times():
+    """The 10q dense grad step (and its H(t) build), a CNOT train_gate
+    epoch, a 4q demo MC epoch and an 8q dense seed epoch (4 seeds,
+    'apply'); returns {name: ms}."""
+    import torch
+    from diffquantum_tpu_torch.dynamics.propagator import reference_n_steps
+    from diffquantum_tpu_torch.gradients.adjoint import energy_and_grad
+    from diffquantum_tpu_torch.models import maxcut
+    from diffquantum_tpu_torch.parallel import train_energy_seeds
+    from diffquantum_tpu_torch.pulses.envelope import SimpleEnvelope
+    from diffquantum_tpu_torch.train import TrainConfig, train_energy
+    from diffquantum_tpu_torch.train import train_gate
+
+    p = dense_problems()
+    ring = p["ring"]
+    out = {}
     coeff = coeff_12q(ring, seed=10)
     args = (ring.ham, ring.envelope, ring.measurement, coeff, ring.psi0,
             ring.T, 30)
-    ms = cuda_ms(lambda: energy_and_grad(*args), 5, 1)
+    out["grad10dense"] = ms = cuda_ms(lambda: energy_and_grad(*args), 5, 1)
     ms_x = cuda_ms(lambda: energy_and_grad(*args, backend="expm"), 3, 1)
     u = ring.envelope.amplitudes(coeff, torch.arange(30, dtype=torch.float64,
                                                      device=DEVICE) * (
@@ -2146,21 +2167,44 @@ def phase_dense_times():
         f"ms; K7 bound of the step {30 * bound!r} ms")
     two_ham, omegas = p["two"]
     env = SimpleEnvelope(basis="bspline", n_basis=6, omegas=omegas)
-    ms = cuda_ms(lambda: train_gate(two_ham, env, CNOT, 4.0,
-                                    TrainConfig(n_basis=6, n_epoch=20,
-                                                lr=0.1)), 1, 1) / 20
+    out["cnot_epoch"] = ms = cuda_ms(lambda: train_gate(
+        two_ham, env, CNOT, 4.0, TrainConfig(n_basis=6, n_epoch=20,
+                                             lr=0.1)), 1, 1) / 20
     log(f"time: CNOT train_gate epoch {ms!r} ms (20 epochs in one call, "
         f"with the final evolution; 50 K7 forward and 50 backward launches "
         f"at d=4, B=4 per epoch)")
     demo = p["demo"]
-    ms = cuda_ms(lambda: train_energy(
+    out["demo_mc_epoch"] = ms = cuda_ms(lambda: train_energy(
         demo.ham, demo.envelope, demo.measurement, demo.psi0, demo.T,
         TrainConfig(n_basis=6, n_epoch=10, lr=2e-2, grad_mode="mc")),
         1, 1) / 10
     log(f"time: 4q demo MC epoch {ms!r} ms (10 epochs in one call; 100 K7 "
         f"launches at d=16, B=16 per epoch)")
-    log(f"time: the dense times took {time.perf_counter() - t_phase:.1f} s")
+    p8 = maxcut.build_maxcut(8, maxcut.ring_graph(8), device=DEVICE)
+    n8 = reference_n_steps(10, 0.0, p8.T)
+    init = torch.tensor(1e-3 * np.random.default_rng(8).standard_normal(
+        (4,) + p8.envelope.coeff_shape), dtype=torch.float32, device=DEVICE)
+    out["seeds8dense_epoch"] = ms = cuda_ms(lambda: train_energy_seeds(
+        p8.ham, p8.envelope, p8.measurement, p8.psi0, p8.T,
+        TrainConfig(n_epoch=3, backend="apply"), n_seeds=4,
+        init_coeffs=init), 1, 1) / 3
+    log(f"time: 8q dense seed epoch {ms!r} ms (4 seeds, 3 epochs in one "
+        f"call; {4 * n8} K7 forward and backward launches at d=256, B=1 per "
+        f"epoch)")
     return out
+
+
+def phase_dense_times():
+    """K7 at every shape of dense_kernel_cases and the dense paths' times
+    (k7_case_times, dense_path_times). Returns {kernel: (ms, plain_ms,
+    bound_ms, bound_by, library_ms)} at the 10q state's shape (d = 1024,
+    B = 1)."""
+    t_phase = time.perf_counter()
+    times = k7_case_times(dense_kernel_cases())
+    dense_path_times()
+    log(f"time: the dense times took {time.perf_counter() - t_phase:.1f} s")
+    main = times["10q dense MaxCut state, d=1024 B=1"]
+    return {f"k7_{part}": main[part] for part in ("forward", "backward")}
 
 
 # --------------------------------------------------------------------------

@@ -12,7 +12,9 @@ H_k``, a plain product outside any kernel). Both are IEEE fp32 for
 d <= 1024, as the TPU kernel served. On the CPU the wrapper runs the
 plain versions beside them (:func:`taylor_apply_plain`,
 :func:`taylor_apply_backward_plain`); a CUDA tensor always launches the
-kernel or raises.
+kernel or raises. :func:`k7_plan` chooses the launch's configuration
+(block-resident for small d, row-split for the rest) in plain Python and
+passes its geometry to the kernels as ints.
 
 The 'apply' backend chooses its route per chain before any launch
 (:func:`apply_route`): K7 for float32 on the card with d <= 1024, and
@@ -33,6 +35,7 @@ cotangent of term k.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -132,6 +135,118 @@ def taylor_apply_backward_plain(h: CP, psi: CP, g: CP, zs: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# the launch plan
+# ---------------------------------------------------------------------------
+
+SMEM_LIMIT = 232_448   # shared memory a block may use on the H100 (bytes)
+SMS = 132              # streaming multiprocessors of the H100 SXM
+BLOCK_MAX_D = 64       # the largest d of the block-resident configuration
+ROWS = 8               # rows of H per block of the row-split configuration
+MAX_WARPS = 16         # warps per block of the row-split configuration
+_H_PAD = 16            # floats of padding per shared row of H (row-split)
+
+
+@dataclasses.dataclass(frozen=True)
+class K7Plan:
+    """One K7 launch's geometry. ``config`` 'block' (block-resident: a
+    block holds all ``rows`` = d rows of H and ``states`` states, ordinary
+    launch, ``grid`` blocks split the states) or 'rows' (row-split: a
+    cooperative grid of ceil(d / 8) blocks of ``rows`` = 8 rows each,
+    ``states`` states per pass of the register-tiled product, ``chunks``
+    chunks per pass of ``steps`` x ``threads`` columns (a lane takes 4
+    columns of each ``threads``), one block per SM).
+    ``smem``: dynamic shared-memory bytes; ``stride``: the row stride of
+    the term scratch (d, or d rounded up to 4 for the 16-byte copies of
+    'rows'); ``terms_in_smem``: the block-resident backward keeps its
+    recomputed terms in shared memory."""
+    config: str
+    rows: int
+    threads: int
+    states: int
+    grid: int
+    smem: int
+    chunks: int
+    steps: int
+    stride: int
+    terms_in_smem: bool
+
+    @property
+    def config_id(self) -> int:
+        return 0 if self.config == "block" else 1
+
+
+def block_states(d: int) -> int:
+    """States one block-resident block takes: 1024 // d (16 at d = 64, 64
+    at d = 16), so the control paths (B <= 16) run on one block and need
+    no second pass for gH."""
+    return max(1, 1024 // d)
+
+
+def k7_plan(d: int, b: int, backward: bool, terms: int = 64) -> K7Plan:
+    """The launch plan of one K7 call on [b, d] states (``terms`` = order
+    x substeps, which decides whether the block-resident backward keeps
+    its terms in shared memory).
+
+    - d <= ``BLOCK_MAX_D`` (64): block-resident. H takes d^2 x 8 bytes
+      (32 KB at d = 64; H^dagger is H read the other way), so one block
+      holds H, the terms and (backward) gH with no grid barrier. The
+      threshold, from both configurations forced at the same shapes
+      (``scripts/k7_variants.py``, NVIDIA H100 80GB HBM3, 700.00 W power
+      limit, ms forward / backward): block-resident is faster at d = 16
+      and 32 (d = 16, B = 16: 0.047 / 0.078 against 0.117 / 0.324) and
+      at d = 48, B = 5; from d = 48, B = 16 and d = 64, B = 5 it is
+      faster forward and slower backward (d = 64, B = 5: 0.161 / 0.497
+      against 0.170 / 0.435); the row-split launch wins at d = 64,
+      B = 16 (0.231 / 0.640 against 0.324 / 1.041) and at every d >= 65.
+      No path runs 48 < d <= 64; the control paths (d = 2, 4, 16) are
+      well inside.
+    - 64 < d <= 1024: row-split, ceil(d / 8) blocks (128 at d = 1024,
+      one per SM) of min(16, ceil(d / 32)) warps (at least 8 x states
+      threads: one per output of a pass); 2 states per pass at B <= 2 (a
+      whole term as one chunk), else 8 (a lane's register tile is 4 rows
+      x 4 states x 4 columns; passes of 4 states measured slower at
+      d = 1024, B = 40 and 64).
+    """
+    if d < 1 or b < 1:
+        raise ValueError(f"k7_plan needs d, B >= 1, got d={d}, B={b}")
+    if d <= BLOCK_MAX_D:
+        states = min(b, block_states(d))
+        plane = states * d
+        work = max(plane, d * d) if backward else plane
+        threads = min(1024, max(32, -(-work // 32) * 32))
+        hs = d | 1
+        in_smem = False
+        floats = 2 * d * hs + 6 * plane
+        if backward:
+            base = 2 * d * hs + 2 * d * d + 8 * plane
+            in_smem = 4 * (base + 2 * plane * terms) <= SMEM_LIMIT
+            floats = base + (2 * plane * terms if in_smem else 4 * plane)
+        return K7Plan("block", d, threads, states, -(-b // states),
+                      4 * floats, 1, 1, d, in_smem)
+    states = 2 if b <= 2 else 8
+    # 32 columns a warp; at least 8 x states threads (one per output of a
+    # pass)
+    warps = min(MAX_WARPS, max(-(-d // 32), states // 4))
+    # a pass of 2 states stages all its columns at once (one chunk, up to
+    # two column steps a lane: one staged item per term); 8 states a chunk
+    # of one step
+    steps = min(2, -(-d // (32 * warps))) if states == 2 else 1
+    chunk = 32 * warps * steps
+    chunks = -(-d // chunk)
+    hs = chunks * chunk + _H_PAD
+    h_floats = (2 if backward else 1) * 2 * ROWS * hs
+    stage = 2 * states * (chunk + (ROWS if backward else 0))
+    floats = h_floats + 2 * stage + 16 * states * warps
+    return K7Plan("rows", ROWS, 32 * warps, states, -(-d // ROWS),
+                  4 * floats, chunks, steps, -(-d // 4) * 4, False)
+
+
+def _plan_ints(plan: K7Plan):
+    return (plan.config_id, plan.threads, plan.states, plan.grid, plan.smem,
+            plan.chunks, plan.steps, plan.stride)
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernels
 # ---------------------------------------------------------------------------
 
@@ -139,9 +254,9 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("taylor_apply")
     if not getattr(lib, "_dq_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dq_k7_forward.argtypes = [p] * 9 + [i] * 4 + [p]
+        lib.dq_k7_forward.argtypes = [p] * 8 + [i] * 12 + [p]
         lib.dq_k7_forward.restype = i
-        lib.dq_k7_backward.argtypes = [p] * 14 + [i] * 4 + [p]
+        lib.dq_k7_backward.argtypes = [p] * 13 + [i] * 13 + [p]
         lib.dq_k7_backward.restype = i
         lib.dq_k7_error_string.argtypes = [i]
         lib.dq_k7_error_string.restype = ctypes.c_char_p
@@ -149,11 +264,11 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _raise_on(lib, code: int, what: str):
+def _raise_on(lib, code: int, what: str, plan: K7Plan):
     if code != 0:
         raise RuntimeError(f"{what} launch failed: "
                            f"{lib.dq_k7_error_string(code).decode()} "
-                           f"({code})")
+                           f"({code}); {plan}")
 
 
 def _contig(*ts):
@@ -165,18 +280,21 @@ def _forward_cuda(h_re, h_im, p_re, p_im, zs, order: int, substeps: int):
     global K7_FWD_LAUNCHES
     h_re, h_im, p_re, p_im, zs = _contig(h_re, h_im, p_re, p_im, zs)
     b, d = p_re.shape
+    plan = k7_plan(d, b, False, order * substeps)
     out_re, out_im = torch.empty_like(p_re), torch.empty_like(p_im)
-    buf = torch.empty((2, 2, b, d), dtype=torch.float32, device=p_re.device)
-    bar = torch.zeros(2, dtype=torch.int32, device=p_re.device)
+    buf = out_re
+    if plan.config == "rows":
+        buf = torch.empty(4 * b * plan.stride, dtype=torch.float32,
+                          device=p_re.device)
     lib = _lib()
     with torch.cuda.device(p_re.device):
         stream = torch.cuda.current_stream(p_re.device).cuda_stream
         code = lib.dq_k7_forward(
             h_re.data_ptr(), h_im.data_ptr(), p_re.data_ptr(),
             p_im.data_ptr(), zs.data_ptr(), out_re.data_ptr(),
-            out_im.data_ptr(), buf.data_ptr(), bar.data_ptr(), d, b, order,
-            substeps, stream)
-    _raise_on(lib, code, "K7 forward")
+            out_im.data_ptr(), buf.data_ptr(), d, b, order, substeps,
+            *_plan_ints(plan), stream)
+    _raise_on(lib, code, "K7 forward", plan)
     K7_FWD_LAUNCHES += 1
     return out_re, out_im
 
@@ -188,12 +306,19 @@ def _backward_cuda(h_re, h_im, p_re, p_im, g_re, g_im, zs, order: int,
     h_re, h_im, p_re, p_im, g_re, g_im, zs = _contig(
         h_re, h_im, p_re, p_im, g_re, g_im, zs)
     b, d = p_re.shape
+    plan = k7_plan(d, b, True, order * substeps)
     f32 = dict(dtype=torch.float32, device=p_re.device)
     gh_re, gh_im = torch.empty((d, d), **f32), torch.empty((d, d), **f32)
     gp_re, gp_im = torch.empty_like(p_re), torch.empty_like(p_im)
-    terms = torch.empty((substeps, order, 2, b, d), **f32)
-    gbuf = torch.empty((3, 2, b, d), **f32)
-    bar = torch.zeros(2, dtype=torch.int32, device=p_re.device)
+    terms = gbuf = gp_re
+    if plan.config == "rows":
+        terms = torch.empty(substeps * order * 2 * b * plan.stride, **f32)
+        gbuf = torch.empty(6 * b * plan.stride, **f32)
+    else:
+        if not plan.terms_in_smem:
+            terms = torch.empty(substeps * order * 2 * b * d, **f32)
+        if plan.grid > 1:
+            gbuf = torch.empty(plan.grid * 2 * d * d, **f32)
     lib = _lib()
     with torch.cuda.device(p_re.device):
         stream = torch.cuda.current_stream(p_re.device).cuda_stream
@@ -202,8 +327,9 @@ def _backward_cuda(h_re, h_im, p_re, p_im, g_re, g_im, zs, order: int,
             p_im.data_ptr(), g_re.data_ptr(), g_im.data_ptr(),
             zs.data_ptr(), gh_re.data_ptr(), gh_im.data_ptr(),
             gp_re.data_ptr(), gp_im.data_ptr(), terms.data_ptr(),
-            gbuf.data_ptr(), bar.data_ptr(), d, b, order, substeps, stream)
-    _raise_on(lib, code, "K7 backward")
+            gbuf.data_ptr(), d, b, order, substeps, *_plan_ints(plan),
+            int(plan.terms_in_smem), stream)
+    _raise_on(lib, code, "K7 backward", plan)
     K7_BWD_LAUNCHES += 1
     return gh_re, gh_im, gp_re, gp_im
 

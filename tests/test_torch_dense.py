@@ -339,13 +339,16 @@ def test_trotter_step_rule():
 
 
 @pytest.mark.gpu
-def test_k7_kernel_matches_plain_on_card():
-    """K7 against its plain version on the card at the 10-qubit shape
-    (the six shapes of the main path run in chip_smoke.py)."""
+@pytest.mark.parametrize("d, b", [(16, 3), (64, 3), (65, 3), (1024, 3),
+                                  (1024, 40)])
+def test_k7_kernel_matches_plain_on_card(d, b):
+    """K7 against its plain version on the card: a block-resident shape,
+    both sides of the configuration boundary (d = 64 and 65) and the
+    10-qubit shape at B = 3 and 40 (the nine shapes of the paths run in
+    chip_smoke.py)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: K7 has no CPU mode")
     rng = np.random.default_rng(0)
-    d, b = 1024, 3
     h, psi, g = _hermitian(rng, d, 1.0), _kets(rng, (b, d)), _kets(rng, (b, d))
     order, s = texpm.taylor_params(4.19, 1e-7)
     cu = lambda a: tcpx.from_complex(a, device="cuda")  # noqa: E731

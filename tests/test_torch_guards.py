@@ -49,6 +49,8 @@ def test_port_imports_no_jax():
     files = sorted((REPO / "diffquantum_tpu_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch_step.py",
               REPO / "scripts" / "sharded_multicard.py"]
+    files += [REPO / "scripts" / f"{name}.py" for name in (
+        "k7_times", "k7_variants", "grid_barrier_bench")]
     assert len(files) > 15
     names = {str(f.relative_to(REPO / "diffquantum_tpu_torch"))
              for f in files if "diffquantum_tpu_torch" in f.parts}
@@ -224,9 +226,12 @@ def test_dense_auto_rule_on_cpu():
 
 def test_apply_on_cpu_never_loads_the_kernels(monkeypatch):
     """'apply' on a CPU state takes the recurrence route and never builds
-    or loads a kernel library, forward or backward."""
+    or loads a kernel library, forward or backward; nor does K7's wrapper
+    (``taylor_apply``, with its launch plan) on CPU tensors."""
     from diffquantum_tpu_torch.gradients.adjoint import energy_and_grad
     from diffquantum_tpu_torch.ops import _build
+    from diffquantum_tpu_torch.ops import taylor_apply as ta
+    from diffquantum_tpu_torch.ops.cpx import CP
 
     def refuse(*a, **k):
         raise AssertionError("a CPU path tried to load a kernel library")
@@ -237,6 +242,18 @@ def test_apply_on_cpu_never_loads_the_kernels(monkeypatch):
     val, grad = energy_and_grad(p.ham, p.envelope, p.measurement, c, p.psi0,
                                 p.T, 6, backend="apply")
     assert torch.isfinite(grad).all() and np.isfinite(float(val))
+    rng = np.random.default_rng(7)
+    for d, b in ((16, 16), (65, 3)):   # one shape of each configuration
+        plans = [ta.k7_plan(d, b, bw) for bw in (False, True)]
+        assert {pl.config for pl in plans} == {"block" if d <= 64 else "rows"}
+        h = CP(*(torch.tensor(rng.standard_normal((d, d)) * 0.1,
+                              dtype=torch.float32, requires_grad=True)
+                 for _ in range(2)))
+        psi = CP(*(torch.tensor(rng.standard_normal((b, d)),
+                                dtype=torch.float32) for _ in range(2)))
+        out = ta.taylor_apply(h, psi, 0.0, -0.3, 8, 2)
+        gh = torch.autograd.grad(out.re.sum() + out.im.sum(), [h.re, h.im])
+        assert all(torch.isfinite(x).all() for x in gh)
 
 
 def test_make_mesh_raises():
