@@ -17,7 +17,9 @@ at the first phase that does not hold:
    then the packed-phase pair (csrc/packed_phase.cu) through K3's entry
    point at 18 qubits and K5's single and batched entry points at 19-24,
    the cases listed in phase_packed_kernels (hops inside and across the
-   tile boundary, two sign planes, T = 1, B > 1); then the same pair
+   tile boundary, two sign planes, T = 1, B > 1; each line names the
+   plan pk_plan gives its shape), and the 24-qubit backward run twice,
+   bit-identical; then the same pair
    through K6's entry points (the palindromic A/B schedule of hop drive
    sets, phase_hop_kernels: the molecule drive set at 19, 20 and 24
    qubits, a set whose B ops commute, T = 1, B = 4); K7
@@ -457,19 +459,22 @@ def mixed_packed(n, n_steps, seed):
     """An n-qubit plan of X, Y and hop ops sharing qubits (palindromic):
     one hop inside the pass kernels' tile (bits k-1 and 1), one across
     its boundary (bits k+1 and k-2) and one on the strided bits (qubits 0
-    and 1); random rows, a random drift h0th and the ring's sign planes.
-    Returns (psi0 [1, d], ud [T, 1, S], theta_x [T, 1, n_ops], h0th,
-    signs, qubits, kinds)."""
+    and 1), for the tile bits k of both the forward's and the backward's
+    plan (``pk_plan``); random rows, a random drift h0th and the ring's
+    sign planes. Returns (psi0 [1, d], ud [T, 1, S], theta_x [T, 1,
+    n_ops], h0th, signs, qubits, kinds)."""
     import torch
     from diffquantum_tpu_torch.dynamics.product import _symmetrize_rots
     from diffquantum_tpu_torch.ops import fused_product as tfp
     d = 2**n
     rng = np.random.default_rng(seed)
     _, _, _, _, signs, _, _ = packed_inputs(frontier_problem(n), 1, seed)
-    k = tfp._tile_plan(n, 2)[0]  # qubit q is bit n-1-q; the tile: bits < k
-    assert k == tfp._tile_plan(n, 4)[0] and k + 2 < n
-    qubits = tuple(range(n)) + (0, n - 3, (n - k, n - 2),
-                                (n - k - 2, n - k + 1), (0, 1))
+    # qubit q is bit n-1-q; a tile holds bits < k
+    ks = [tfp.pk_plan(n, planes, n).k for planes in (2, 4)]
+    lo, hi = min(ks), max(ks)
+    assert hi + 2 < n
+    qubits = tuple(range(n)) + (0, n - 3, (n - lo, n - 2),
+                                (n - hi - 2, n - lo + 1), (0, 1))
     kinds = ("x",) * n + ("y", "y", "hop", "hop", "hop")
     f32 = dict(dtype=torch.float32, device=DEVICE)
     tx = torch.tensor(0.3 * rng.standard_normal((n_steps, 1, len(qubits))),
@@ -479,6 +484,26 @@ def mixed_packed(n, n_steps, seed):
     h0th = torch.tensor(0.1 * rng.standard_normal(d), **f32)
     psi0 = _random_cp(rng, (1, d), 1.0 / np.sqrt(2 * d))
     return psi0, ud, tx.contiguous(), h0th, signs, qubits, kinds
+
+
+def pk_geometry(n, n_diag, members):
+    """The pass kernels' plan (``pk_plan``) at a shape, both directions,
+    as one line: the splits k, k2 and columns lc, and per pass kind its
+    tile size, register bits, threads, ring stages and blocks per member
+    (a pass of one round runs direct, without its ring)."""
+    import torch
+    from diffquantum_tpu_torch.ops import fused_product as tfp
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    parts = []
+    for part, planes in (("fwd", 2), ("bwd", 4)):
+        g = tfp.pk_plan(n, planes, n_diag, members, sms)
+        kinds = [(name, p) for name, p in (("tile", g.tile), ("mid", g.mid),
+                                           ("strided", g.strided))
+                 if p is not None]
+        parts.append(f"{part} k={g.k} k2={g.k2} lc={g.lc}: " + ", ".join(
+            f"{name} 2^{p.lb} r={p.rbits} {p.threads}t S={p.stages} "
+            f"{p.blocks} blocks" for name, p in kinds))
+    return "; ".join(parts)
 
 
 def phase_packed_kernels():
@@ -565,14 +590,37 @@ def phase_packed_kernels():
             (out.re.detach(), out.im.detach()), ref, got,
             (gp.re, gp.im, gud, gtx), "dpsi_re, dpsi_im, dud, dtheta_x")
         log(f"kernel check {kernel.upper()} [{label}]: {len(kinds)} ops, "
-            f"{signs.shape[0]} sign plane(s), forward max abs err "
-            f"{fwd_err!r} (atol {TOL_PK['fwd']}); backward relative errors "
-            f"{rels!r} (bound {TOL_PK['grad']}); first launch + sync "
+            f"{signs.shape[0]} sign plane(s), plan "
+            f"[{pk_geometry(n, ud.shape[-1] - 1, b or 1)}], forward max abs "
+            f"err {fwd_err!r} (atol {TOL_PK['fwd']}); backward relative "
+            f"errors {rels!r} (bound {TOL_PK['grad']}); first launch + sync "
             f"{t_k * 1e3:.3f} ms")
         if main:
             errs[kernel] = (fwd_err, bwd_abs)
         del out, ref, got, leaves, gp, gud, gtx, lam
         torch.cuda.empty_cache()
+
+    # the 24q backward twice on the same inputs: bit-identical gradients
+    # (fixed-order sums, no atomics)
+    prob = frontier_problem(24)
+    _, ud, tx, h0th, signs, qubits, kinds = packed_inputs(prob, 30, 24)
+    ud, tx = ud[:, None].contiguous(), tx[:, None].contiguous()
+    plan, udm = tfp._packed_plan(qubits, kinds, 24), tfp.merge_ud_rows(ud)
+    o_re, o_im = tfp._packed_forward_cuda(
+        prob.psi0.re[None].contiguous(), prob.psi0.im[None].contiguous(),
+        udm, tx, h0th, signs, plan, 24, "K5")
+    w = prob.measurement.diag
+    runs = [tfp._packed_backward_cuda(o_re, o_im, 2.0 * w * o_re,
+                                      2.0 * w * o_im, udm, tx, h0th, signs,
+                                      plan, 24, "K5") for _ in range(2)]
+    torch.cuda.synchronize()
+    same = [bool(torch.equal(a, b)) for a, b in zip(*runs)]
+    log(f"kernel check K5 [24q ring MaxCut backward, T=30, run twice]: "
+        f"dpsi_re, dpsi_im, dud, dtheta_x bit-identical {same}")
+    if not all(same):
+        fail("the 24q K5 backward is not bitwise reproducible")
+    del runs, o_re, o_im, udm
+    torch.cuda.empty_cache()
     return errs
 
 
@@ -1263,7 +1311,8 @@ def phase_hop_kernels():
             ref, got, (gp.re, gp.im, gud, gtx),
             "dpsi_re, dpsi_im, dud, dtheta_x")
         log(f"kernel check K6 [{label}]: {len(pos)} angle slots, {n_rows} "
-            f"rows per step, {signs.shape[0]} sign plane(s), forward max "
+            f"rows per step, {signs.shape[0]} sign plane(s), plan "
+            f"[{pk_geometry(n, ud.shape[-1] - 1, b or 1)}], forward max "
             f"abs err {fwd_err!r} (atol {TOL_HOP['fwd']}); backward "
             f"relative errors {rels!r} (bound {TOL_HOP['grad']}); first "
             f"launch + sync {t_k * 1e3:.3f} ms")
@@ -2297,7 +2346,8 @@ def phase_chunked_kernels():
             label, "K4", TOL_PK, (out.re.detach(), out.im.detach()), ref,
             got, (gp.re, gp.im, gud, gtx), "dpsi_re, dpsi_im, dud, dtheta_x")
         log(f"kernel check K4 [{label}]: {len(kinds)} ops, "
-            f"{signs.shape[0]} sign plane(s), forward max abs err "
+            f"{signs.shape[0]} sign plane(s), plan "
+            f"[{pk_geometry(n, ud.shape[-1] - 1, 1)}], forward max abs err "
             f"{fwd_err!r} (atol {TOL_PK['fwd']}); backward relative errors "
             f"{rels!r} (bound {TOL_PK['grad']}); first launch + sync "
             f"{t_k * 1e3:.3f} ms")

@@ -1,24 +1,28 @@
-// K3, K5 and K6 on Hopper (sm_90a): the packed-phase Strang chain over a
-// state in global memory, and its exact O(1)-memory adjoint.
+// K3, K4, K5 and K6 on Hopper (sm_90a): the packed-phase Strang chain over
+// a state in global memory, and its exact O(1)-memory adjoint.
 //
 // Replaces the TPU kernels
 //   K3 _make_forward_kernel_pk   (diffquantum_tpu/ops/fused_product.py:1285,
 //                                 pallas_call :1572)
 //   K3 _make_backward_kernel_pk  (fused_product.py:1364, pallas_call :1638)
-//   K5 _make_mega_fwd            (diffquantum_tpu/ops/fused_chunked.py:695,
-//                                 pallas_call :932 single, :1117 batched)
+//   K4 _make_passA_fwd/_passB_fwd, _make_passA_bwd/_passB_bwd
+//                                (diffquantum_tpu/ops/fused_chunked.py:202,
+//                                 :216, :327, :356; pallas_call :401-:484)
+//   K5 _make_mega_fwd            (fused_chunked.py:695, pallas_call :932
+//                                 single, :1117 batched)
 //   K5 _make_mega_bwd            (fused_chunked.py:766, :980, :1166)
 //   K6 _make_mega_hop_fwd        (diffquantum_tpu/ops/fused_mega_hop.py:612,
 //                                 pallas_call :921 single, :1052 batched)
 //   K6 _make_mega_hop_bwd        (fused_mega_hop.py:685, :964, :1096)
-// behind fused_product_evolve_packed, chunked_evolve_mega(_batched) and
-// chunked_evolve_mega_hop(_batched). K3 and K5 compute one function; on
-// the TPU they differ only in how the state meets VMEM. K6 is another
-// integrator (a palindromic A/B schedule: each step's ops at half angle
-// forward, then reversed), which these kernels run as op rows that carry
-// a scale: a row rotates by scale * theta_x[slot], a slot may have several
-// rows, and its gradient is the sum of its rows' scaled partials. The
-// Python wrappers and the plain PyTorch versions are
+// behind fused_product_evolve_packed, chunked_evolve,
+// chunked_evolve_mega(_batched) and chunked_evolve_mega_hop(_batched). K3,
+// K4 and K5 compute one function; on the TPU they differ only in how the
+// state meets VMEM. K6 is another integrator (a palindromic A/B schedule:
+// each step's ops at half angle forward, then reversed), which these
+// kernels run as op rows that carry a scale: a row rotates by scale *
+// theta_x[slot], a slot may have several rows, and its gradient is the sum
+// of its rows' scaled partials. The Python wrappers, the launch plan
+// (pk_plan) and the plain PyTorch versions are
 // diffquantum_tpu_torch/ops/fused_product.py (_packed_forward_cuda,
 // _packed_backward_cuda, _packed_core), ops/fused_chunked.py and
 // ops/fused_mega_hop.py.
@@ -30,51 +34,65 @@
 // the sign bit-planes (bit k%30 of plane k//30), then, for s < T, applies
 // step s's ordered op rows: X (c x - i s G x), Y (c x + s K x) or hop (an
 // X-type rotation on the {01,10} pairs of two bits), each by the angle
-// scale * theta_x[s, b, slot] (scale 1 for K3/K5, 1/2 or 1 for K6). The
-// backward runs the
-// stages in reverse from (psi_T, lambda_T), rebuilding each earlier state
-// by the inverse op (G^2 = I, K^2 = -I), and reduces the cotangents to
-// d theta_x [T, B, n_x] (per slot, the sum of its rows' partials times
-// their scales) and the merged rows' [T+1, B, n_diag+1]:
+// scale * theta_x[s, b, slot] (scale 1 for K3/K4/K5, 1/2 or 1 for K6). The
+// backward runs the stages in reverse from (psi_T, lambda_T), rebuilding
+// each earlier state by the inverse op (G^2 = I, K^2 = -I), and reduces
+// the cotangents to d theta_x [T, B, n_x] (per slot, the sum of its rows'
+// partials times their scales) and the merged rows' [T+1, B, n_diag+1]:
 // S0 - 2 S_k for slot k and S0 for the offset slot, where
 // S0 = sum_j g_j, S_k = sum_j g_j bit_k(j), g = lam_re y_im - lam_im y_re.
 //
-// What bounds it on this card. From 18 qubits up the state (2-128 MB per
-// member, twice that with lambda) lives in global memory: an 18-qubit
-// state fits the H100's 50 MB L2, a 24-qubit one does not. The function
-// itself needs ~12 fp32 operations per amplitude pair per op and ~10 plus
-// 2 per diagonal term per amplitude per stage, which bounds it by
-// operations (chip_smoke.py::packed_bound, at the H100 SXM data sheet's
-// 67 TFLOP/s and 3.35 TB/s); but each pass of this design reads and
-// writes the whole state, ~20 GB per 30-step forward at 24 qubits, so
-// there the card's memory bandwidth sets the time. At 18 qubits the
-// ~2T+1 dependent launches, each a few microseconds of work, set it.
+// What bounds it on this card. From 18 qubits up the state (1-128 MB per
+// member and plane pair) lives in global memory: an 18-20 qubit state
+// fits the H100's 50 MB L2, a 24-qubit one does not. A step is a few
+// passes, each reading and writing the whole state (16 bytes an amplitude
+// forward, 32 backward, plus the 4-byte sign plane once per stage), so at
+// 24 qubits HBM bandwidth sets the floor: ~4.8 ms for a 30-step forward
+// and ~9.6 ms backward at 3.35 TB/s over two passes a step. Below ~20
+// qubits the passes are short, and fixed costs per block (tables,
+// barriers) and the ~2T+1 dependent launches set the time.
 //
-// What the design does about it. Each stage is a few passes, each one
-// launch spread over the whole card (grid: blocks x B members), with the
-// pass's amplitudes staged in shared memory:
-//  - a tile pass: block bi holds 2^k consecutive amplitudes (the low k
-//    bits, qubits n-k..n-1). It computes each amplitude's phase from the
-//    sign planes and the member's row in shared memory, then applies the
-//    step's ops on those bits with a barrier between ops, and writes back;
-//  - a strided pass: block bi holds all 2^(n-k) rows (the high bits) of
-//    2^lc consecutive low-bit columns, each row read as one 2^lc-float
-//    segment, and applies the step's ops on the high bits;
-//  - a cross pass: an op with one bit on each side (a hop across the tile
-//    boundary), applied pair by pair straight from global memory.
-// The host groups one step's ordered ops into these passes, moving an op
-// only past ops on disjoint bits (ops/fused_product.py::_pass_plan), so
-// the ring MaxCut's X drives take one tile and one strided pass per step,
-// as K5's passes A and B do, and the chain is ~2T+1 launches. The
-// backward mirrors each pass in reverse, carrying lambda beside y. Each
-// block writes its partial sums (one per op, and S_k and S0 for the tile
-// pass) to a [T+1, B, ...] buffer; a last launch sums them in a fixed
-// order (no atomics), so the gradients are deterministic: per slot, its
-// locations in plan order. Offsets are size_t: B*d passes 2^31 at 24
-// qubits from B = 128 up. K6's hops cross the tile/strided split more
-// often than K5's X drives, so its steps take more passes (15 per stage
-// for the 20-qubit molecule drive set, 32 at 24 qubits), each bound like
-// K5's.
+// What the design does about it. Each pass is one launch; its geometry
+// (tile, middle and strided bits, columns, register bits, threads, ring
+// stages, blocks) comes from the host's plan
+// (ops/fused_product.py::pk_plan), which this file checks and never
+// chooses.
+//  - Tiles. A tile pass holds 2^k consecutive amplitudes (the low k bits)
+//    and applies the stage phase and the step's ops on those bits; a
+//    strided pass holds rows on the high bits (>= k2) of 2^lc consecutive
+//    low-bit columns; where a tile of all the high bits would not fit a
+//    block twice over (24 qubits), a middle pass takes the bits k..k2-1
+//    the same way, so a step is three passes of small tiles instead of
+//    two of large ones; a cross pass applies one op with bits on two
+//    sides pair by pair straight from global memory.
+//  - Persistent blocks and a ring. A pass launches `blocks` blocks per
+//    member (a few per SM), each walking its share of the member's tiles
+//    through a ring of `stages` shared-memory buffers: every thread
+//    issues 16-byte cp.async copies for a whole tile at once (the sign
+//    planes beside the state in a tile pass), so the next tile loads
+//    while this one's ops run and the last one's stores drain. A pass
+//    whose ops take one round runs direct (stages 0): its threads load
+//    their amplitudes from global memory, apply the round and store them,
+//    with no shared memory and no barrier.
+//  - Ops in registers. The host groups a pass's ordered ops into rounds of
+//    r bits (an op row's sixth column is its round's mask). In a round
+//    every thread gathers the 2^r amplitudes of one group (one fixed value
+//    of the other bits) from shared memory into registers, applies all the
+//    round's ops there, and scatters them back: one barrier per round, not
+//    per op. Shared memory is swizzled in 16-byte units so that gathers
+//    across lanes fall on different banks.
+//  - Phases from tables. A stage's phase factor is e^{-i base} times, per
+//    sign plane, four unit phases looked up by the bytes of the plane word
+//    (tables of e^{2i sum of a_k over the byte's set bits}, built once per
+//    block): four complex products an amplitude instead of an angle sum
+//    and a sincos. The drift term is computed only when the host says the
+//    drift is nonzero.
+//  - Deterministic sums. The backward reduces each op's partial per warp
+//    and tile, and S_k and S0 by a warp transpose-sum (31 shuffles for 32
+//    sums), accumulating per warp across the block's tiles in a fixed
+//    order; each block writes one partial per column to [T+1, B, stride],
+//    and a last launch sums them in a fixed order (no atomics). Offsets
+//    are size_t: B*d passes 2^31 at 24 qubits from B = 128 up.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -82,52 +100,84 @@
 namespace {
 
 constexpr int kMaxOps = 128;
-constexpr int kOpCols = 5;  // slot, kind, mask a, mask b, scale in halves
+constexpr int kOpCols = 6;    // slot, kind, mask a, mask b, scale in halves,
+                              // round mask
+constexpr int kPassCols = 9;  // see Pass
 constexpr int kMaxDiag = 120;
 constexpr int kPlaneBits = 30;
+constexpr int kMaxSignPlanes = 4;
+constexpr int kLutEntries = 4 * 256;  // a sign plane's four byte tables
 constexpr int kMaxThreads = 512;
 constexpr int kMaxWarps = kMaxThreads / 32;
+constexpr int kMaxRBits = 5;      // forward; the backward takes <= 4
+constexpr int kMaxStages = 4;
 constexpr int kCrossThreads = 256;
-constexpr size_t kMaxDataBytes = 128 * 1024;
+// static shared memory of the two pass kernels, mirrored by
+// ops/fused_product.py::PK_STATIC_BYTES (the plan's budget)
+constexpr size_t kFwdStatic = 5 * 1024;
+constexpr size_t kBwdStatic = 21 * 1024;
 
 enum OpKind : int { kX = 0, kY = 1, kHop = 2 };
-enum PassKind : int { kTile = 0, kStrided = 1, kCross = 2 };
+enum PassKind : int { kTile = 0, kStrided = 1, kCross = 2, kMid = 3 };
 
 // one row of the host's pass table
 struct Pass {
   int kind, op_begin, op_count, blocks, part_off, part_width;
+  int rbits, threads, stages;  // tile/middle/strided: the plan's geometry
 };
+static_assert(sizeof(Pass) == kPassCols * sizeof(int), "pass row");
 
 // what every pass launch reads
 struct Chain {
   const float* udm;    // [T+1, B, n_diag + 2] merged stage rows
   const float* tx;     // [T, B, n_x] rotation angles
-  const float* h0th;   // [d] drift half-angles
+  const float* h0th;   // [d] drift half-angles (read only if drift)
   const int* planes;   // [P, d] sign bit-planes
-  int n, k, T, B, n_diag, P, n_x;
+  int n, k, k2, lc, T, B, n_diag, P, n_x, drift;
 };
 
-// a pass's op table, its rows' scales and the (cos, sin) of their angles
-// for this member
+// one tile, middle or strided pass launch
+struct PassArgs {
+  float* pl[4];       // state planes: y re, im (and backward lambda re, im)
+  const int* ops;     // this pass's op rows
+  float* part;        // backward: block partials
+  int n_ops, stage, kind, lb, phase, signs, stages, tiles;
+  int lcp, k1, rb;    // columns, the rows' first bit, row bits
+  int stride, part_off, width, diag_col;
+};
+
+// a pass's op rows and the (cos, sin) of their angles for this member
 struct OpTable {
-  int slot[kMaxOps];
   int kind[kMaxOps];
   unsigned ma[kMaxOps];
   unsigned mb[kMaxOps];
+  unsigned round[kMaxOps];
   float scale[kMaxOps];
   float c[kMaxOps];
   float s[kMaxOps];
 };
 
-__device__ __forceinline__ float row_scale(const int* op) {
-  return 0.5f * (float)op[4];
-}
-
-// a stage's merged row, and off + sum_k a_k
-struct StageRow {
+// a stage's row and its base phase e^{-i base}, base = off + sum_k a_k
+// (the unit-phase tables, kLutEntries float2 per sign plane, sit at the
+// head of the dynamic shared memory, before the ring)
+struct PhaseTable {
   float a[kMaxDiag + 2];
-  float base;
+  float c0, s0;
 };
+
+struct FwdShared {
+  OpTable tab;
+  PhaseTable ph;
+};
+
+struct BwdShared {
+  OpTable tab;
+  PhaseTable ph;
+  float wop[kMaxOps][kMaxWarps];             // per-warp op partials
+  float wsk[kMaxSignPlanes * 32][kMaxWarps];  // per-warp S_k (and S0)
+};
+static_assert(sizeof(FwdShared) <= kFwdStatic, "forward static smem");
+static_assert(sizeof(BwdShared) <= kBwdStatic, "backward static smem");
 
 __device__ __forceinline__ unsigned insert_zero(unsigned p, unsigned m) {
   return ((p & ~(m - 1u)) << 1) | (p & (m - 1u));
@@ -156,123 +206,540 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// global amplitude index of local slot l of block bi: columns are the low
-// lc bits of l, rows the bits above them, each row 2^k amplitudes apart
-// (a tile pass has lc = k and one row)
-__device__ __forceinline__ size_t amp_index(unsigned bi, unsigned l, int k,
-                                            int lc) {
-  return ((size_t)bi << lc) + (l & ((1u << lc) - 1u)) +
-         ((size_t)(l >> lc) << k);
+// 32 sums at once: lane l ends with the warp's sum of v[l] (31 shuffles).
+template <int S>
+__device__ __forceinline__ void transpose_step(float (&v)[32], unsigned lane) {
+  const bool up = (lane & (unsigned)S) != 0;
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    const float send = up ? v[i] : v[i + S];
+    const float keep = up ? v[i + S] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, S);
+  }
+  if constexpr (S > 1) transpose_step<S / 2>(v, lane);
 }
 
-// The pass's ops and angles, and with a phase the stage row; ends with a
-// barrier.
-__device__ void load_pass(OpTable& tab, StageRow& row, const Chain& ch,
-                          const int* __restrict__ ops, int n_ops, int stage,
-                          bool phase) {
+__device__ __forceinline__ float warp_transpose_sum(float (&v)[32]) {
+  transpose_step<16>(v, threadIdx.x & 31u);
+  return v[0];
+}
+
+// 16-byte units of shared memory swizzled by the 128-byte line: lanes
+// that gather at strides of 16-128 bytes fall on different banks, and a
+// 4-, 8- or 16-byte unit stays contiguous and aligned
+__device__ __forceinline__ unsigned swz(unsigned l) {
+  return l ^ (((l >> 5) & 7u) << 2);
+}
+
+// Global amplitude index of local slot l of tile t: the low lcp bits of l
+// are columns (global bits 0..lcp-1), the rest rows (rb bits from global
+// bit k1); the tile index fills the other bits, low part first. A tile
+// pass has lcp = k1 = k and rb = 0.
+__device__ __forceinline__ size_t amp_index(const PassArgs& a, unsigned t,
+                                            unsigned l) {
+  const unsigned tl = a.k1 - a.lcp;  // tile bits below the rows
+  return (size_t)(l & ((1u << a.lcp) - 1u)) |
+         ((size_t)(t & ((1u << tl) - 1u)) << a.lcp) |
+         ((size_t)(l >> a.lcp) << a.k1) |
+         ((size_t)(t >> tl) << (a.k1 + a.rb));
+}
+
+__device__ __forceinline__ void cp_async(float* dst, const void* src,
+                                         int words) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  if (words == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s),
+                 "l"(src)
+                 : "memory");
+  else if (words == 2)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(s),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s),
+                 "l"(src)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// wait until at most `pending` copy groups of this thread are in flight
+__device__ __forceinline__ void cp_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;" ::: "memory"); break;
+  }
+}
+
+// words of the contiguous units a pass copies: 4 (16 bytes) unless the
+// rows are shorter
+__device__ __forceinline__ int unit_words(const PassArgs& a) {
+  const int run = a.kind == kTile ? a.lb : a.lcp;
+  return run >= 2 ? 4 : 1 << run;
+}
+
+// Start the copies of tile t into buffer buf: the state planes, then (a
+// tile pass with its phase) the sign planes, each 2^lb words.
+__device__ void issue_tile(float* buf, const PassArgs& a, const Chain& ch,
+                           unsigned t, int nq, size_t mo) {
+  const size_t d = (size_t)1 << ch.n;
+  const unsigned L = 1u << a.lb;
+  const int w = unit_words(a);
+  for (unsigned u = threadIdx.x; u < L / w; u += blockDim.x) {
+    const unsigned l = u * w;
+    const size_t j = amp_index(a, t, l);
+    const unsigned sl = swz(l);
+    for (int q = 0; q < nq; ++q)
+      cp_async(buf + q * L + sl, a.pl[q] + mo + j, w);
+    for (int p = 0; p < a.signs; ++p)
+      cp_async(buf + (nq + p) * L + sl, ch.planes + p * d + j, w);
+  }
+}
+
+// Write buffer buf's state planes back to tile t.
+__device__ void store_tile(const float* buf, const PassArgs& a, unsigned t,
+                           int nq, size_t mo) {
+  const unsigned L = 1u << a.lb;
+  const int w = unit_words(a);
+  for (unsigned u = threadIdx.x; u < L / w; u += blockDim.x) {
+    const unsigned l = u * w;
+    const size_t j = amp_index(a, t, l);
+    const unsigned sl = swz(l);
+    for (int q = 0; q < nq; ++q) {
+      float* g = a.pl[q] + mo + j;
+      const float* s = buf + q * L + sl;
+      if (w == 4)
+        *reinterpret_cast<float4*>(g) = *reinterpret_cast<const float4*>(s);
+      else if (w == 2)
+        *reinterpret_cast<float2*>(g) = *reinterpret_cast<const float2*>(s);
+      else
+        *g = *s;
+    }
+  }
+}
+
+// The pass's op rows and their angles for member blockIdx.y, and with a
+// phase the stage row, its base phase and its unit-phase tables (lut:
+// entry v of byte table q of plane p, at p * kLutEntries + q * 256 + v,
+// is e^{+i phi}, phi = 2 sum of a_k over the set bits of v, k = 30 p +
+// 8 q + bit). Ends with a barrier.
+__device__ void load_tables(OpTable& tab, PhaseTable& ph, float2* lut,
+                            const Chain& ch, const PassArgs& a) {
   const unsigned b = blockIdx.y;
-  const float* tx = ch.tx + ((size_t)stage * ch.B + b) * ch.n_x;
-  for (int o = threadIdx.x; o < n_ops; o += blockDim.x) {
-    const int* op = ops + kOpCols * o;
-    tab.slot[o] = op[0];
+  const float* tx = ch.tx + ((size_t)a.stage * ch.B + b) * ch.n_x;
+  for (int o = threadIdx.x; o < a.n_ops; o += blockDim.x) {
+    const int* op = a.ops + kOpCols * o;
     tab.kind[o] = op[1];
     tab.ma[o] = (unsigned)op[2];
     tab.mb[o] = (unsigned)op[3];
-    tab.scale[o] = row_scale(op);
-    sincosf(tab.scale[o] * __ldg(tx + tab.slot[o]), &tab.s[o], &tab.c[o]);
+    tab.scale[o] = 0.5f * (float)op[4];
+    tab.round[o] = (unsigned)op[5];
+    sincosf(tab.scale[o] * __ldg(tx + op[0]), &tab.s[o], &tab.c[o]);
   }
-  if (phase) {
-    const float* u = ch.udm + ((size_t)stage * ch.B + b) * (ch.n_diag + 2);
-    for (int i = threadIdx.x; i < ch.n_diag + 2; i += blockDim.x)
-      row.a[i] = __ldg(u + i);
+  if (!a.phase) {
+    __syncthreads();
+    return;
   }
+  const float* u = ch.udm + ((size_t)a.stage * ch.B + b) * (ch.n_diag + 2);
+  for (int i = threadIdx.x; i < ch.n_diag + 2; i += blockDim.x)
+    ph.a[i] = __ldg(u + i);
   __syncthreads();
-  if (phase && threadIdx.x == 0) {
-    float base = row.a[ch.n_diag];
-    for (int i = 0; i < ch.n_diag; ++i) base += row.a[i];
-    row.base = base;
+  if (threadIdx.x < 32) {  // base = off + sum_k a_k, lane order fixed
+    float v = 0.f;
+    for (int i = threadIdx.x; i < ch.n_diag; i += 32) v += ph.a[i];
+    v = warp_sum(v);
+    if (threadIdx.x == 0) {
+      float s, c;
+      sincosf(ph.a[ch.n_diag] + v, &s, &c);
+      ph.c0 = c;
+      ph.s0 = -s;
+    }
+  }
+  for (int e = threadIdx.x; e < a.signs * kLutEntries; e += blockDim.x) {
+    const int tbl = e >> 8;  // plane tbl / 4, byte tbl % 4
+    const int k0 = (tbl >> 2) * kPlaneBits + (tbl & 3) * 8;
+    const int nb = max(0, min(min(8, kPlaneBits - (tbl & 3) * 8),
+                              ch.n_diag - k0));
+    unsigned v = (unsigned)(e & 255);
+    if (v >> nb) continue;  // bits past n_diag are 0: never looked up
+    float phi = 0.f;
+    while (v) {
+      phi += ph.a[k0 + __ffs(v) - 1];
+      v &= v - 1u;
+    }
+    float s, c;
+    sincosf(2.f * phi, &s, &c);
+    lut[e] = make_float2(c, s);
   }
   __syncthreads();
 }
 
-// theta_s(j) = m h0th[j] + (off + sum_k a_k) - 2 sum_{k: bit set} a_k
-__device__ __forceinline__ float stage_angle(const StageRow& row,
-                                             const Chain& ch, size_t j) {
-  const size_t d = (size_t)1 << ch.n;
-  float t = 0.f;
-  for (int p = 0; p * kPlaneBits < ch.n_diag; ++p) {
-    const int nb = min(kPlaneBits, ch.n_diag - p * kPlaneBits);
-    unsigned w = (unsigned)__ldg(ch.planes + (size_t)p * d + j) &
-                 ((1u << nb) - 1u);
-    while (w) {
-      t += row.a[p * kPlaneBits + __ffs(w) - 1];
-      w &= w - 1u;
+// ---------------------------------------------------------------------------
+// ops on a thread's 2^R amplitudes in registers; A and B are the ranks of
+// the op's bits among its round's R bits
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void rot_pair(bool y, float c, float s, float& ar,
+                                         float& ai, float& br, float& bi) {
+  const float xr = ar, xi = ai, zr = br, zi = bi;
+  if (y) {
+    ar = c * xr - s * zr;
+    ai = c * xi - s * zi;
+    br = c * zr + s * xr;
+    bi = c * zi + s * xi;
+  } else {
+    ar = c * xr + s * zi;
+    ai = c * xi - s * zr;
+    br = c * zr + s * xi;
+    bi = c * zi - s * xr;
+  }
+}
+
+// Undo one op on the pair (a, b) of y and lambda; returns the pair's share
+// of d theta = Re<lambda, dR/dtheta x>, read off the op's output y:
+// dR/dtheta x = K y (Y: R = c + s K) or -i G y (X, hop: R = c - i s G).
+__device__ __forceinline__ float undo_pair(bool y, float c, float s,
+                                           float& yar, float& yai,
+                                           float& ybr, float& ybi,
+                                           float& lar, float& lai,
+                                           float& lbr, float& lbi) {
+  float xar, xai, xbr, xbi, nar, nai, nbr, nbi, g;
+  if (y) {
+    // x = c y - s K y; lam_x = c lam - s K lam
+    g = (lbr * yar - lar * ybr) + (lbi * yai - lai * ybi);
+    xar = c * yar + s * ybr;
+    xbr = c * ybr - s * yar;
+    xai = c * yai + s * ybi;
+    xbi = c * ybi - s * yai;
+    nar = c * lar + s * lbr;
+    nbr = c * lbr - s * lar;
+    nai = c * lai + s * lbi;
+    nbi = c * lbi - s * lai;
+  } else {
+    // x = c y + i s G y; lam_x = c lam + i s G lam
+    g = (lar * ybi - lai * ybr) + (lbr * yai - lbi * yar);
+    xar = c * yar - s * ybi;
+    xai = c * yai + s * ybr;
+    xbr = c * ybr - s * yai;
+    xbi = c * ybi + s * yar;
+    nar = c * lar - s * lbi;
+    nai = c * lai + s * lbr;
+    nbr = c * lbr - s * lai;
+    nbi = c * lbi + s * lar;
+  }
+  yar = xar; yai = xai; ybr = xbr; ybi = xbi;
+  lar = nar; lai = nai; lbr = nbr; lbi = nbi;
+  return g;
+}
+
+// Amplitudes of a thread in a round: v[q][i], plane q, group slot i.
+template <int R, int Q>
+struct Regs {
+  float v[Q][1 << R];
+};
+
+// the pair (i, j) of register slots an op pairs: X/Y on rank A (i has
+// bit A clear), hop on ranks (A, B) (i: bit A clear, bit B set)
+template <int R, int A, int B>
+__device__ __forceinline__ constexpr bool first_of_pair(int i) {
+  constexpr int b = B < 0 ? 0 : B;
+  return B < 0 ? !((i >> A) & 1) : (!((i >> A) & 1) && ((i >> b) & 1));
+}
+
+template <int R, int A, int B>
+__device__ __forceinline__ constexpr int partner(int i) {
+  constexpr int b = B < 0 ? 0 : B;
+  return B < 0 ? (i | (1 << A)) : (i ^ (1 << A) ^ (1 << b));
+}
+
+template <int R, int A, int B>
+__device__ __forceinline__ void fwd_op(Regs<R, 2>& x, bool y, float c,
+                                       float s) {
+#pragma unroll
+  for (int i = 0; i < (1 << R); ++i) {
+    if (!first_of_pair<R, A, B>(i)) continue;
+    const int j = partner<R, A, B>(i);
+    rot_pair(y, c, s, x.v[0][i], x.v[1][i], x.v[0][j], x.v[1][j]);
+  }
+}
+
+template <int R, int A, int B>
+__device__ __forceinline__ float bwd_op(Regs<R, 4>& x, bool y, float c,
+                                        float s) {
+  float g = 0.f;
+#pragma unroll
+  for (int i = 0; i < (1 << R); ++i) {
+    if (!first_of_pair<R, A, B>(i)) continue;
+    const int j = partner<R, A, B>(i);
+    g += undo_pair(y, c, s, x.v[0][i], x.v[1][i], x.v[0][j], x.v[1][j],
+                   x.v[2][i], x.v[3][i], x.v[2][j], x.v[3][j]);
+  }
+  return g;
+}
+
+// Dispatch an op to its compile-time ranks (a: rank of mask a; b: rank of
+// mask b for a hop, -1 otherwise); returns the backward's partial.
+template <int R, int Q, int A = 0, int B = -1>
+__device__ __forceinline__ float apply_op(Regs<R, Q>& x, int a, int b,
+                                          bool y, float c, float s) {
+  if constexpr (A >= R) {
+    return 0.f;
+  } else if constexpr (B >= R) {
+    return apply_op<R, Q, A + 1, -1>(x, a, b, y, c, s);
+  } else {
+    if (a == A && b == B && A != B) {
+      if constexpr (A != B) {
+        if constexpr (Q == 2) {
+          fwd_op<R, A, B>(x, y, c, s);
+          return 0.f;
+        } else {
+          return bwd_op<R, A, B>(x, y, c, s);
+        }
+      }
+    }
+    return apply_op<R, Q, A, B + 1>(x, a, b, y, c, s);
+  }
+}
+
+// rank of bit m among the set bits of mask M
+__device__ __forceinline__ int rank_in(unsigned M, unsigned m) {
+  return __popc(M & (m - 1u));
+}
+
+template <int R, int Q>
+__device__ __forceinline__ float apply_row(Regs<R, Q>& x, const OpTable& tab,
+                                           int o, unsigned M) {
+  const int kind = tab.kind[o];
+  const int a = rank_in(M, tab.ma[o]);
+  const int b = kind == kHop ? rank_in(M, tab.mb[o]) : -1;
+  return apply_op<R, Q>(x, a, b, kind == kY, tab.c[o], tab.s[o]);
+}
+
+// A round's group for thread tid: base (tid's bits spread over the bits
+// outside M) and the masks of M's bits, ascending; and both swizzled
+// (swz is linear over XOR, so slot i's address is one XOR per bit).
+template <int R>
+struct Group {
+  unsigned base, sbase;
+  unsigned bit[R], sbit[R];
+  __device__ __forceinline__ Group(unsigned M, unsigned tid) {
+    unsigned m = M;
+    base = tid;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      bit[r] = m & (0u - m);
+      m &= m - 1u;
+      base = insert_zero(base, bit[r]);
+      sbit[r] = swz(bit[r]);
+    }
+    sbase = swz(base);
+  }
+  // local index of register slot i
+  __device__ __forceinline__ unsigned at(int i) const {
+    unsigned l = base;
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if ((i >> r) & 1) l |= bit[r];
+    return l;
+  }
+  // its swizzled shared-memory slot, swz(at(i))
+  __device__ __forceinline__ unsigned slot(int i) const {
+    unsigned l = sbase;
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if ((i >> r) & 1) l ^= sbit[r];
+    return l;
+  }
+};
+
+// the mask of a round with no op (a phase alone): the top R bits
+__device__ __forceinline__ unsigned phase_mask(int lb, int R) {
+  return ((1u << R) - 1u) << (lb - R);
+}
+
+
+// Where a round's amplitudes come from and go to: the tile staged in
+// shared memory, or (a direct pass) global memory.
+struct Site {
+  float* buf;        // staged tile: plane q at buf + q * L
+  const PassArgs* a;
+  const Chain* ch;
+  size_t mo;         // member offset
+  unsigned L, t;     // tile size and index
+};
+
+template <int R, int Q>
+__device__ __forceinline__ void gather(Regs<R, Q>& x, const Group<R>& g,
+                                       const Site& s, bool global) {
+#pragma unroll
+  for (int i = 0; i < (1 << R); ++i) {
+    if (global) {
+      const size_t j = s.mo + amp_index(*s.a, s.t, g.at(i));
+#pragma unroll
+      for (int q = 0; q < Q; ++q) x.v[q][i] = s.a->pl[q][j];
+    } else {
+      const unsigned sl = g.slot(i);
+#pragma unroll
+      for (int q = 0; q < Q; ++q) x.v[q][i] = s.buf[q * s.L + sl];
     }
   }
-  return row.a[ch.n_diag + 1] * __ldg(ch.h0th + j) + row.base - 2.f * t;
+}
+
+template <int R, int Q>
+__device__ __forceinline__ void scatter(const Regs<R, Q>& x,
+                                        const Group<R>& g, const Site& s,
+                                        bool global) {
+#pragma unroll
+  for (int i = 0; i < (1 << R); ++i) {
+    if (global) {
+      const size_t j = s.mo + amp_index(*s.a, s.t, g.at(i));
+#pragma unroll
+      for (int q = 0; q < Q; ++q) s.a->pl[q][j] = x.v[q][i];
+    } else {
+      const unsigned sl = g.slot(i);
+#pragma unroll
+      for (int q = 0; q < Q; ++q) s.buf[q * s.L + sl] = x.v[q][i];
+    }
+  }
+}
+
+// sign-plane word p of register slot i: staged beside the tile's Q state
+// planes, or read from global memory
+template <int R, int Q>
+__device__ __forceinline__ unsigned sign_word(const Group<R>& g,
+                                              const Site& s, bool global,
+                                              int p, int i) {
+  if (global)
+    return (unsigned)__ldg(s.ch->planes + ((size_t)p << s.ch->n) +
+                           amp_index(*s.a, s.t, g.at(i)));
+  return __float_as_uint(s.buf[(Q + p) * s.L + g.slot(i)]);
+}
+
+// e^{-i theta_s} of register slot i: the base phase times the unit
+// phases of its plane words' bytes (a byte past n_diag is 0, whose
+// entry is exactly 1), and the drift's e^{-i m h0th[j]} with a drift
+template <int R, int Q>
+__device__ __forceinline__ float2 slot_phase(const PhaseTable& ph,
+                                             const float2* lut,
+                                             const Group<R>& g,
+                                             const Site& s, bool global,
+                                             int i) {
+  float zr = ph.c0, zi = ph.s0;
+  for (int p = 0; p < s.a->signs; ++p) {
+    const unsigned w = sign_word<R, Q>(g, s, global, p, i);
+    const float2* lp = lut + p * kLutEntries;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float2 e = lp[q * 256 + ((w >> (8 * q)) & 255u)];
+      const float r = zr * e.x - zi * e.y;
+      zi = zr * e.y + zi * e.x;
+      zr = r;
+    }
+  }
+  if (s.ch->drift) {
+    float sn, cs;
+    sincosf(ph.a[s.ch->n_diag + 1] *
+                __ldg(s.ch->h0th + amp_index(*s.a, s.t, g.at(i))),
+            &sn, &cs);
+    const float r = zr * cs + zi * sn;
+    zi = zi * cs - zr * sn;
+    zr = r;
+  }
+  return make_float2(zr, zi);
+}
+
+// The ring of a staged pass: before tile `it`, start the copies of the
+// tile S-1 ahead and wait for tile it's; the caller's barrier after its
+// stores frees its buffer. A direct pass (stages 0) copies nothing.
+template <int Q>
+__device__ __forceinline__ void ring_prologue(float* dyn, unsigned words,
+                                              const PassArgs& a,
+                                              const Chain& ch, size_t mo) {
+  for (int p = 0; p < a.stages - 1; ++p) {
+    const unsigned t = blockIdx.x + p * gridDim.x;
+    if (t < (unsigned)a.tiles) issue_tile(dyn + p * words, a, ch, t, Q, mo);
+    cp_commit();
+  }
+}
+
+template <int Q>
+__device__ __forceinline__ float* ring_next(float* dyn, unsigned words,
+                                            const PassArgs& a,
+                                            const Chain& ch, size_t mo,
+                                            int it) {
+  const int S = a.stages;
+  if (S == 0) return dyn;
+  const unsigned tn = blockIdx.x + (it + S - 1) * gridDim.x;
+  if (tn < (unsigned)a.tiles)
+    issue_tile(dyn + ((it + S - 1) % S) * words, a, ch, tn, Q, mo);
+  cp_commit();
+  cp_wait(S - 1);
+  __syncthreads();
+  return dyn + (it % S) * words;
 }
 
 // ---------------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------------
 
-// A tile or strided pass: gather 2^l_bits amplitudes of member blockIdx.y,
-// apply the stage phase (tile pass) and the ops, scatter back.
-__global__ void __launch_bounds__(kMaxThreads)
-pass_forward(float* re, float* im, Chain ch, const int* __restrict__ ops,
-             int n_ops, int stage, int lc, int l_bits, int phase) {
-  extern __shared__ float dyn[];
-  __shared__ OpTable tab;
-  __shared__ StageRow row;
-  const size_t d = (size_t)1 << ch.n;
-  const unsigned L = 1u << l_bits, bi = blockIdx.x, tid = threadIdx.x;
-  re += blockIdx.y * d;
-  im += blockIdx.y * d;
-  float* sr = dyn;
-  float* si = dyn + L;
-  load_pass(tab, row, ch, ops, n_ops, stage, phase != 0);
-
-  for (unsigned l = tid; l < L; l += blockDim.x) {
-    const size_t j = amp_index(bi, l, ch.k, lc);
-    float xr = re[j], xi = im[j];
-    if (phase) {
-      float s, c;
-      sincosf(stage_angle(row, ch, j), &s, &c);
-      const float r = c * xr + s * xi;
-      xi = c * xi - s * xr;
-      xr = r;
-    }
-    sr[l] = xr;
-    si[l] = xi;
-  }
-  __syncthreads();
-  for (int o = 0; o < n_ops; ++o) {
-    const int kind = tab.kind[o];
-    const unsigned ma = tab.ma[o], mb = tab.mb[o];
-    const float c = tab.c[o], s = tab.s[o];
-    const unsigned n_pairs = kind == kHop ? L >> 2 : L >> 1;
-    for (unsigned p = tid; p < n_pairs; p += blockDim.x) {
-      unsigned i, j;
-      pair_of(kind, ma, mb, p, i, j);
-      const float ar = sr[i], ai = si[i], br = sr[j], bi_ = si[j];
-      if (kind == kY) {
-        sr[i] = c * ar - s * br;
-        si[i] = c * ai - s * bi_;
-        sr[j] = c * br + s * ar;
-        si[j] = c * bi_ + s * ai;
-      } else {
-        sr[i] = c * ar + s * bi_;
-        si[i] = c * ai - s * br;
-        sr[j] = c * br + s * ai;
-        si[j] = c * bi_ - s * ar;
+// A tile, middle or strided pass: blocks walk tiles of member blockIdx.y.
+// Staged (stages >= 1): each tile arrives by cp.async in a ring of stages,
+// each round gathers and scatters shared memory, and the tile leaves by
+// 16-byte stores. Direct (stages 0, a pass of one round): the round
+// gathers from and scatters to global memory. Per round, a thread
+// applies the stage phase (tile pass, first round) and the round's ops to
+// its 2^R amplitudes.
+template <int R>
+__global__ void __launch_bounds__(kMaxThreads, R <= 4 ? 2 : 1)
+pass_forward(PassArgs a, Chain ch) {
+  extern __shared__ __align__(16) float dyn_all[];
+  __shared__ FwdShared sh;
+  float2* lut = reinterpret_cast<float2*>(dyn_all);
+  float* dyn = dyn_all + 2 * a.signs * kLutEntries;
+  load_tables(sh.tab, sh.ph, lut, ch, a);
+  const unsigned L = 1u << a.lb, tid = threadIdx.x;
+  const unsigned words = (2u + (unsigned)a.signs) << a.lb;
+  const size_t mo = (size_t)blockIdx.y << ch.n;
+  const bool act = tid < (L >> R);
+  const bool direct = a.stages == 0;
+  ring_prologue<2>(dyn, words, a, ch, mo);
+  for (int it = 0;; ++it) {
+    const unsigned t = blockIdx.x + it * gridDim.x;
+    if (t >= (unsigned)a.tiles) break;
+    const Site site{ring_next<2>(dyn, words, a, ch, mo, it), &a, &ch, mo, L,
+                    t};
+    int o = 0;
+    do {
+      const unsigned M = a.n_ops ? sh.tab.round[o] : phase_mask(a.lb, R);
+      int e = o;
+      while (e < a.n_ops && sh.tab.round[e] == M) ++e;
+      if (act) {
+        const Group<R> g(M, tid);
+        Regs<R, 2> x;
+        gather<R, 2>(x, g, site, direct);
+        if (o == 0 && a.phase) {
+#pragma unroll
+          for (int i = 0; i < (1 << R); ++i) {
+            const float2 z = slot_phase<R, 2>(sh.ph, lut, g, site, direct, i);
+            const float xr = x.v[0][i], xi = x.v[1][i];
+            x.v[0][i] = z.x * xr - z.y * xi;
+            x.v[1][i] = z.x * xi + z.y * xr;
+          }
+        }
+        for (int q = o; q < e; ++q) apply_row<R, 2>(x, sh.tab, q, M);
+        scatter<R, 2>(x, g, site, direct);
       }
+      if (!direct) __syncthreads();
+      o = e;
+    } while (o < a.n_ops);
+    if (!direct) {
+      store_tile(site.buf, a, t, 2, mo);
+      __syncthreads();
     }
-    __syncthreads();
-  }
-  for (unsigned l = tid; l < L; l += blockDim.x) {
-    const size_t j = amp_index(bi, l, ch.k, lc);
-    re[j] = sr[l];
-    im[j] = si[l];
   }
 }
 
@@ -287,7 +754,7 @@ cross_forward(float* re, float* im, Chain ch, const int* __restrict__ op,
   const int kind = op[1];
   const unsigned ma = (unsigned)op[2], mb = (unsigned)op[3];
   float s, c;
-  sincosf(row_scale(op) *
+  sincosf(0.5f * (float)op[4] *
               __ldg(ch.tx + ((size_t)stage * ch.B + blockIdx.y) * ch.n_x +
                     op[0]),
           &s, &c);
@@ -296,18 +763,7 @@ cross_forward(float* re, float* im, Chain ch, const int* __restrict__ op,
        p += gridDim.x * blockDim.x) {
     unsigned i, j;
     pair_of(kind, ma, mb, p, i, j);
-    const float ar = re[i], ai = im[i], br = re[j], bi = im[j];
-    if (kind == kY) {
-      re[i] = c * ar - s * br;
-      im[i] = c * ai - s * bi;
-      re[j] = c * br + s * ar;
-      im[j] = c * bi + s * ai;
-    } else {
-      re[i] = c * ar + s * bi;
-      im[i] = c * ai - s * br;
-      re[j] = c * br + s * ai;
-      im[j] = c * bi - s * ar;
-    }
+    rot_pair(kind == kY, c, s, re[i], im[i], re[j], im[j]);
   }
 }
 
@@ -315,146 +771,129 @@ cross_forward(float* re, float* im, Chain ch, const int* __restrict__ op,
 // backward
 // ---------------------------------------------------------------------------
 
-// Undo one op on pair (i, j) of y and lambda; returns this pair's share of
-// d theta = Re<lambda, dR/dtheta x>.
-__device__ __forceinline__ float undo_pair(int kind, float c, float s,
-                                           float* yr, float* yi, float* lr,
-                                           float* li, unsigned i,
-                                           unsigned j) {
-  const float yar = yr[i], yai = yi[i], ybr = yr[j], ybi = yi[j];
-  const float lar = lr[i], lai = li[i], lbr = lr[j], lbi = li[j];
-  float xar, xai, xbr, xbi, nar, nai, nbr, nbi, g;
-  if (kind == kY) {
-    // x = c y - s K y; lam_x = c lam - s K lam; dy/dth = -s x + c K x
-    xar = c * yar + s * ybr;
-    xbr = c * ybr - s * yar;
-    xai = c * yai + s * ybi;
-    xbi = c * ybi - s * yai;
-    g = lar * (-s * xar - c * xbr) + lbr * (-s * xbr + c * xar) +
-        lai * (-s * xai - c * xbi) + lbi * (-s * xbi + c * xai);
-    nar = c * lar + s * lbr;
-    nbr = c * lbr - s * lar;
-    nai = c * lai + s * lbi;
-    nbi = c * lbi - s * lai;
-  } else {
-    // x = c y + i s G y; lam_x = c lam + i s G lam; dy/dth = -s x - i c G x
-    xar = c * yar - s * ybi;
-    xai = c * yai + s * ybr;
-    xbr = c * ybr - s * yai;
-    xbi = c * ybi + s * yar;
-    g = lar * (-s * xar + c * xbi) + lai * (-s * xai - c * xbr) +
-        lbr * (-s * xbr + c * xai) + lbi * (-s * xbi - c * xar);
-    nar = c * lar - s * lbi;
-    nai = c * lai + s * lbr;
-    nbr = c * lbr - s * lai;
-    nbi = c * lbi + s * lar;
-  }
-  yr[i] = xar; yi[i] = xai; yr[j] = xbr; yi[j] = xbi;
-  lr[i] = nar; li[i] = nai; lr[j] = nbr; li[j] = nbi;
-  return g;
-}
-
-// A tile or strided pass in reverse: gather y and lambda, undo the ops
-// last first, then (tile pass) take the phase's partial sums and undo the
-// phase, scatter back. Block partials go to
-// part[((stage*B + b)*stride + part_off + bi*width + col]: one column per
-// op (d angle times the row's scale), then S_0..S_{n_diag-1} and S0 from
-// column diag_col.
-__global__ void __launch_bounds__(kMaxThreads)
-pass_backward(float* y_re, float* y_im, float* l_re, float* l_im, Chain ch,
-              const int* __restrict__ ops, int n_ops, int stage, int lc,
-              int l_bits, int phase, float* part, int stride, int part_off,
-              int width, int diag_col) {
-  extern __shared__ float dyn[];
-  __shared__ OpTable tab;
-  __shared__ StageRow row;
-  __shared__ float wpart[kMaxOps + kMaxDiag + 1][kMaxWarps];
-  const size_t d = (size_t)1 << ch.n;
-  const unsigned L = 1u << l_bits, bi = blockIdx.x, tid = threadIdx.x;
-  const unsigned lane = tid & 31u, warp = tid >> 5;
+// A tile, middle or strided pass in reverse, staged or direct as the
+// forward: per tile, rounds last first undo their ops last first (each
+// op's partial summed per warp into wop), and the round of the first op
+// (tile pass) then takes g = dL/d angle, undoes the phase and sums S_k
+// and S0 (warp transpose-sums into per-lane registers). Block partials go
+// to part[((stage*B + b)*stride + part_off + blockIdx.x*width + col]: one
+// column per op (d angle times the row's scale), then S_0..S_{n_diag-1}
+// and S0 from column diag_col.
+template <int R>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+pass_backward(PassArgs a, Chain ch) {
+  extern __shared__ __align__(16) float dyn_all[];
+  __shared__ BwdShared sh;
+  float2* lut = reinterpret_cast<float2*>(dyn_all);
+  float* dyn = dyn_all + 2 * a.signs * kLutEntries;
+  const unsigned tid = threadIdx.x, lane = tid & 31u, warp = tid >> 5;
   const unsigned n_warps = blockDim.x >> 5;
-  const size_t mo = blockIdx.y * d;
-  y_re += mo; y_im += mo; l_re += mo; l_im += mo;
-  float* yr = dyn;
-  float* yi = dyn + L;
-  float* lr = dyn + 2 * L;
-  float* li = dyn + 3 * L;
-  load_pass(tab, row, ch, ops, n_ops, stage, phase != 0);
-
-  for (unsigned l = tid; l < L; l += blockDim.x) {
-    const size_t j = amp_index(bi, l, ch.k, lc);
-    yr[l] = y_re[j]; yi[l] = y_im[j];
-    lr[l] = l_re[j]; li[l] = l_im[j];
+  for (unsigned e = tid; e < (unsigned)a.n_ops * kMaxWarps; e += blockDim.x)
+    sh.wop[e / kMaxWarps][e % kMaxWarps] = 0.f;
+  load_tables(sh.tab, sh.ph, lut, ch, a);
+  const unsigned L = 1u << a.lb;
+  const unsigned words = (4u + (unsigned)a.signs) << a.lb;
+  const size_t mo = (size_t)blockIdx.y << ch.n;
+  const bool act = tid < (L >> R);
+  const bool direct = a.stages == 0;
+  const int n_acc = a.signs > 0 ? a.signs : 1;  // S0 rides plane 0's sums
+  float sk[kMaxSignPlanes] = {0.f, 0.f, 0.f, 0.f};
+  ring_prologue<4>(dyn, words, a, ch, mo);
+  for (int it = 0;; ++it) {
+    const unsigned t = blockIdx.x + it * gridDim.x;
+    if (t >= (unsigned)a.tiles) break;
+    const Site site{ring_next<4>(dyn, words, a, ch, mo, it), &a, &ch, mo, L,
+                    t};
+    int e = a.n_ops;
+    bool last;
+    do {
+      const unsigned M = a.n_ops ? sh.tab.round[e - 1] : phase_mask(a.lb, R);
+      int o = e;
+      while (o > 0 && sh.tab.round[o - 1] == M) --o;
+      last = o == 0;
+      const Group<R> g(M, tid);
+      Regs<R, 4> x;
+      if (act) gather<R, 4>(x, g, site, direct);
+      for (int q = e - 1; q >= o; --q) {
+        float gq = act ? apply_row<R, 4>(x, sh.tab, q, M) : 0.f;
+        gq = warp_sum(gq);
+        if (lane == 0) sh.wop[q][warp] += gq * sh.tab.scale[q];
+      }
+      const bool phase = last && a.phase;
+      float gj[1 << R];
+      if (phase && act) {
+        // g = dL/d angle (unchanged by the phase), then undo the phase:
+        // x = e^{+i theta} y, lam_x = e^{+i theta} lam
+#pragma unroll
+        for (int i = 0; i < (1 << R); ++i) {
+          const float y0 = x.v[0][i], y1 = x.v[1][i];
+          const float l0 = x.v[2][i], l1 = x.v[3][i];
+          gj[i] = l0 * y1 - l1 * y0;
+          const float2 z = slot_phase<R, 4>(sh.ph, lut, g, site, direct, i);
+          x.v[0][i] = z.x * y0 + z.y * y1;
+          x.v[1][i] = z.x * y1 - z.y * y0;
+          x.v[2][i] = z.x * l0 + z.y * l1;
+          x.v[3][i] = z.x * l1 - z.y * l0;
+        }
+      }
+      if (act) scatter<R, 4>(x, g, site, direct);
+      if (phase) {
+        // S_k of plane p's 30 bits in slots 0..29 and S0 in plane 0's
+        // slot 30, summed over the warp at once (bits past n_diag are 0
+        // in the planes, and their sums are never read)
+#pragma unroll
+        for (int p = 0; p < kMaxSignPlanes; ++p) {
+          if (p < n_acc) {
+            float v[32];
+#pragma unroll
+            for (int q = 0; q < 32; ++q) v[q] = 0.f;
+            if (act) {
+#pragma unroll
+              for (int i = 0; i < (1 << R); ++i) {
+                const unsigned w =
+                    p < a.signs ? sign_word<R, 4>(g, site, direct, p, i)
+                                : 0u;
+#pragma unroll
+                for (int q = 0; q < kPlaneBits; ++q)
+                  if ((w >> q) & 1u) v[q] += gj[i];
+                if (p == 0) v[30] += gj[i];
+              }
+            }
+            sk[p] += warp_transpose_sum(v);
+          }
+        }
+      }
+      if (!direct) __syncthreads();
+      e = o;
+    } while (!last);
+    if (!direct) {
+      store_tile(site.buf, a, t, 4, mo);
+      __syncthreads();
+    }
   }
   __syncthreads();
-  for (int o = n_ops - 1; o >= 0; --o) {
-    const int kind = tab.kind[o];
-    const unsigned ma = tab.ma[o], mb = tab.mb[o];
-    const float c = tab.c[o], s = tab.s[o];
-    const unsigned n_pairs = kind == kHop ? L >> 2 : L >> 1;
-    float g = 0.f;
-    for (unsigned p = tid; p < n_pairs; p += blockDim.x) {
-      unsigned i, j;
-      pair_of(kind, ma, mb, p, i, j);
-      g += undo_pair(kind, c, s, yr, yi, lr, li, i, j);
-    }
-    g = warp_sum(g);
-    if (lane == 0) wpart[o][warp] = g * tab.scale[o];
-    __syncthreads();
-  }
-  if (phase) {
-    // S_k, 30 sign bits (one plane) at a time; each thread reads only
-    // the slots it also updates below, so no barrier is needed between
-    for (int p = 0; p * kPlaneBits < ch.n_diag; ++p) {
-      float acc[kPlaneBits];
+  if (a.phase) {
 #pragma unroll
-      for (int q = 0; q < kPlaneBits; ++q) acc[q] = 0.f;
-      for (unsigned l = tid; l < L; l += blockDim.x) {
-        const size_t j = amp_index(bi, l, ch.k, lc);
-        const float g = lr[l] * yi[l] - li[l] * yr[l];
-        const unsigned w = (unsigned)__ldg(ch.planes + (size_t)p * d + j);
-#pragma unroll
-        for (int q = 0; q < kPlaneBits; ++q)
-          acc[q] += ((w >> q) & 1u) ? g : 0.f;
-      }
-#pragma unroll
-      for (int q = 0; q < kPlaneBits; ++q) {
-        const float v = warp_sum(acc[q]);
-        if (lane == 0 && p * kPlaneBits + q < ch.n_diag)
-          wpart[kMaxOps + p * kPlaneBits + q][warp] = v;
-      }
-    }
-    // S0, and undo the phase: x = e^{+i theta} y, lam_x = e^{+i theta} lam
-    float s0 = 0.f;
-    for (unsigned l = tid; l < L; l += blockDim.x) {
-      const size_t j = amp_index(bi, l, ch.k, lc);
-      const float y0 = yr[l], y1 = yi[l], l0 = lr[l], l1 = li[l];
-      s0 += l0 * y1 - l1 * y0;
-      float s, c;
-      sincosf(stage_angle(row, ch, j), &s, &c);
-      y_re[j] = c * y0 - s * y1;
-      y_im[j] = s * y0 + c * y1;
-      l_re[j] = c * l0 - s * l1;
-      l_im[j] = s * l0 + c * l1;
-    }
-    s0 = warp_sum(s0);
-    if (lane == 0) wpart[kMaxOps + ch.n_diag][warp] = s0;
-  } else {
-    for (unsigned l = tid; l < L; l += blockDim.x) {
-      const size_t j = amp_index(bi, l, ch.k, lc);
-      y_re[j] = yr[l]; y_im[j] = yi[l];
-      l_re[j] = lr[l]; l_im[j] = li[l];
-    }
+    for (int p = 0; p < kMaxSignPlanes; ++p)
+      if (p < n_acc) sh.wsk[p * 32 + lane][warp] = sk[p];
   }
   __syncthreads();
-  float* out = part + ((size_t)stage * ch.B + blockIdx.y) * stride +
-               part_off + (size_t)bi * width;
-  const int n_diag_cols = phase ? ch.n_diag + 1 : 0;
-  for (int t = tid; t < n_ops + n_diag_cols; t += blockDim.x) {
-    const int src = t < n_ops ? t : kMaxOps + (t - n_ops);
+  float* out = a.part + ((size_t)a.stage * ch.B + blockIdx.y) * a.stride +
+               a.part_off + (size_t)blockIdx.x * a.width;
+  const int n_diag_cols = a.phase ? ch.n_diag + 1 : 0;
+  for (int c = tid; c < a.n_ops + n_diag_cols; c += blockDim.x) {
     float v = 0.f;
-    for (unsigned w = 0; w < n_warps; ++w) v += wpart[src][w];
-    out[t < n_ops ? t : diag_col + (t - n_ops)] = v;
+    if (c < a.n_ops) {
+      for (unsigned w = 0; w < n_warps; ++w) v += sh.wop[c][w];
+      out[c] = v;
+    } else {
+      const int kk = c - a.n_ops;  // S_kk, or S0 at kk = n_diag
+      const int row = kk < ch.n_diag
+                          ? (kk / kPlaneBits) * 32 + kk % kPlaneBits
+                          : 30;
+      for (unsigned w = 0; w < n_warps; ++w) v += sh.wsk[row][w];
+      out[a.diag_col + kk] = v;
+    }
   }
 }
 
@@ -470,7 +909,7 @@ cross_backward(float* y_re, float* y_im, float* l_re, float* l_im, Chain ch,
   y_re += mo; y_im += mo; l_re += mo; l_im += mo;
   const int kind = op[1];
   const unsigned ma = (unsigned)op[2], mb = (unsigned)op[3];
-  const float scale = row_scale(op);
+  const float scale = 0.5f * (float)op[4];
   float s, c;
   sincosf(scale *
               __ldg(ch.tx + ((size_t)stage * ch.B + blockIdx.y) * ch.n_x +
@@ -482,7 +921,8 @@ cross_backward(float* y_re, float* y_im, float* l_re, float* l_im, Chain ch,
        p += gridDim.x * blockDim.x) {
     unsigned i, j;
     pair_of(kind, ma, mb, p, i, j);
-    g += undo_pair(kind, c, s, y_re, y_im, l_re, l_im, i, j);
+    g += undo_pair(kind == kY, c, s, y_re[i], y_im[i], y_re[j], y_im[j],
+                   l_re[i], l_im[i], l_re[j], l_im[j]);
   }
   g = warp_sum(g);
   if ((threadIdx.x & 31u) == 0) wpart[threadIdx.x >> 5] = g;
@@ -542,27 +982,100 @@ __global__ void reduce_partials(const float* __restrict__ part, int stride,
 // host side
 // ---------------------------------------------------------------------------
 
-int threads_for(unsigned l_bits) {
-  const unsigned half = (1u << l_bits) >> 1;
-  return half >= kMaxThreads ? kMaxThreads : (half < 32 ? 32 : (int)half);
+typedef void (*PassFn)(PassArgs, Chain);
+
+// the kernels by register bits: forward 2-5, backward 2-4 (32 amplitudes
+// of y and lambda would not fit a thread's registers)
+PassFn pass_fn(bool bwd, int r) {
+  if (bwd) {
+    switch (r) {
+      case 2: return pass_backward<2>;
+      case 3: return pass_backward<3>;
+      case 4: return pass_backward<4>;
+      default: return nullptr;
+    }
+  }
+  switch (r) {
+    case 2: return pass_forward<2>;
+    case 3: return pass_forward<3>;
+    case 4: return pass_forward<4>;
+    case 5: return pass_forward<5>;
+    default: return nullptr;
+  }
 }
 
-// local size (log2) of a tile or strided pass, -1 if the row is wrong
-int pass_l_bits(const Pass& ps, int n, int k, int lc) {
-  if (ps.kind == kTile)
-    return ps.blocks == (1 << (n - k)) ? k : -1;
-  if (ps.kind == kStrided)
-    return ps.blocks == (1 << (k - lc)) ? n - k + lc : -1;
-  return -1;
+// Each pass kernel's dynamic shared-memory ceiling, raised once per
+// (kernel, device) to what the card leaves beside its static tables.
+struct Raised {
+  PassFn fn;
+  int dev;
+  size_t limit;
+};
+Raised g_raised[64];
+int g_n_raised = 0;
+
+int dyn_limit(PassFn fn, size_t* limit) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  for (int i = 0; i < g_n_raised; ++i)
+    if (g_raised[i].fn == fn && g_raised[i].dev == dev) {
+      *limit = g_raised[i].limit;
+      return 0;
+    }
+  int optin = 0;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes fa;
+  e = cudaFuncGetAttributes(&fa, fn);
+  if (e != cudaSuccess) return (int)e;
+  const size_t lim = (size_t)optin - fa.sharedSizeBytes;
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)lim);
+  if (e != cudaSuccess) return (int)e;
+  if (g_n_raised < 64) g_raised[g_n_raised++] = Raised{fn, dev, lim};
+  *limit = lim;
+  return 0;
 }
 
-bool bad_chain(const Pass* passes, int n_pass, int n, int k, int lc, int T,
-               int B, int n_diag, int P, int n_x, int planes) {
-  if (n < 2 || n > 24 || k < 1 || k > n || lc < 0 || lc > k || T < 1 ||
-      B < 1 || B > 65535 || n_diag < 0 || n_diag > kMaxDiag || P < 1 ||
-      P * kPlaneBits < n_diag || n_x < 0 || n_pass < 1 ||
+// A tile, middle or strided pass's local bits and its index map: columns
+// (lcp), the rows' first global bit (k1) and row bits (rb).
+struct Shape {
+  int lb, lcp, k1, rb;
+};
+
+Shape pass_shape(int kind, int n, int k, int k2, int lc) {
+  if (kind == kTile) return Shape{k, k, k, 0};
+  if (kind == kMid) return Shape{k2 - k + lc, lc, k, k2 - k};
+  return Shape{n - k2 + lc, lc, k2, n - k2};
+}
+
+int signs_staged(int n_diag) {
+  return (n_diag + kPlaneBits - 1) / kPlaneBits;
+}
+
+// dynamic shared-memory bytes of a pass: its unit-phase tables (a tile
+// pass with its phase) and its ring (none when direct)
+size_t pass_smem(int kind, int lb, int nq, int signs, int stages) {
+  const int s = kind == kTile ? signs : 0;
+  return (size_t)s * kLutEntries * sizeof(float2) +
+         ((size_t)stages * (nq + s) << lb) * sizeof(float);
+}
+
+// The geometry the host's plan gives each pass, checked: splits, local
+// bits, register bits, threads, stages and blocks within the kernels' and
+// the card's limits. (The op rows' round masks, each op's bits inside its
+// round's R bits and a direct pass's single round, are the plan's:
+// ops/fused_product.py::_pass_layout, tested on the CPU.)
+bool bad_chain(const Pass* passes, int n_pass, int n, int k, int k2, int lc,
+               int T, int B, int n_diag, int P, int n_x, bool bwd) {
+  if (n < 2 || n > 24 || k < 1 || k > k2 || k2 > n || lc < 0 || lc > k ||
+      T < 1 || B < 1 || B > 65535 || n_diag < 0 || n_diag > kMaxDiag ||
+      P < 1 || P * kPlaneBits < n_diag || n_x < 0 || n_pass < 1 ||
       passes[0].kind != kTile)
     return true;
+  const int nq = bwd ? 4 : 2;
   for (int i = 0; i < n_pass; ++i) {
     const Pass& ps = passes[i];
     if (ps.op_count < 0 || ps.op_count > kMaxOps || ps.blocks < 1)
@@ -571,11 +1084,46 @@ bool bad_chain(const Pass* passes, int n_pass, int n, int k, int lc, int T,
       if (ps.op_count != 1) return true;
       continue;
     }
-    const int lb = pass_l_bits(ps, n, k, lc);
-    if (lb < 0 || ((size_t)planes * sizeof(float) << lb) > kMaxDataBytes)
+    if ((ps.kind != kTile && ps.kind != kMid && ps.kind != kStrided) ||
+        (ps.kind == kMid && k2 == k) || (ps.kind == kStrided && k2 == n))
+      return true;
+    const Shape sh = pass_shape(ps.kind, n, k, k2, lc);
+    const int r = ps.rbits;
+    if (r < 2 || r > (bwd ? 4 : kMaxRBits) || r > sh.lb) return true;
+    if (ps.threads < 32 || ps.threads > kMaxThreads || ps.threads % 32 ||
+        ps.threads < (1 << (sh.lb - r)))
+      return true;
+    if (ps.stages < 0 || ps.stages > kMaxStages ||
+        ps.blocks > (1 << (n - sh.lb)))
+      return true;
+    size_t limit = 0;
+    if (dyn_limit(pass_fn(bwd, r), &limit) != 0) return true;
+    if (pass_smem(ps.kind, sh.lb, nq, signs_staged(n_diag), ps.stages) >
+        limit)
       return true;
   }
   return false;
+}
+
+// Launch one tile, middle or strided pass at stage s.
+cudaError_t launch_pass(const Pass& p, PassArgs a, const Chain& ch, int s,
+                        int nq, bool bwd, cudaStream_t st) {
+  const Shape sh = pass_shape(p.kind, ch.n, ch.k, ch.k2, ch.lc);
+  a.kind = p.kind;
+  a.lb = sh.lb;
+  a.lcp = sh.lcp;
+  a.k1 = sh.k1;
+  a.rb = sh.rb;
+  a.tiles = 1 << (ch.n - sh.lb);
+  a.stage = s;
+  a.stages = p.stages;
+  a.part_off = p.part_off;
+  a.width = p.part_width;
+  a.diag_col = p.op_count;
+  const size_t smem = pass_smem(p.kind, sh.lb, nq, a.signs, a.stages);
+  const PassFn fn = pass_fn(bwd, p.rbits);
+  fn<<<dim3(p.blocks, ch.B), p.threads, smem, st>>>(a, ch);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -583,23 +1131,26 @@ bool bad_chain(const Pass* passes, int n_pass, int n, int k, int lc, int T,
 extern "C" {
 
 // Forward chain over B states [B, d], updated in place in (re, im), which
-// hold psi_0 on entry and psi_T on return. passes: host table [n_pass, 6]
-// (kind, first op row, op count, blocks, partial offset, partial width);
-// ops: device op rows [n_ops, 5] (slot, kind, local mask a, local mask b,
-// scale in halves); tx: [T, B, n_x], n_x angle slots.
+// hold psi_0 on entry and psi_T on return. passes: host table [n_pass, 9]
+// (kind, first op row, op count, blocks per member, partial offset,
+// partial width, register bits, threads, ring stages (0: direct)); ops:
+// device op rows [n_ops, 6] (slot, kind, local mask a, local mask b,
+// scale in halves, round mask); the splits k <= k2 <= n and columns lc
+// (pk_plan); tx: [T, B, n_x], n_x angle slots; drift: 0 when h0th is zero
+// (then never read).
 int dq_pk_forward(float* re, float* im, const float* udm, const float* tx,
                   const float* h0th, const int* planes, const int* ops,
-                  const int* passes, int n_pass, int n, int k, int lc, int T,
-                  int B, int n_diag, int P, int n_x, void* stream) {
+                  const int* passes, int n_pass, int n, int k, int k2,
+                  int lc, int T, int B, int n_diag, int P, int n_x,
+                  int drift, void* stream) {
   const Pass* ps = reinterpret_cast<const Pass*>(passes);
-  if (bad_chain(ps, n_pass, n, k, lc, T, B, n_diag, P, n_x, 2))
+  (void)cudaGetLastError();  // report this call's errors alone
+  if (bad_chain(ps, n_pass, n, k, k2, lc, T, B, n_diag, P, n_x, false))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaFuncSetAttribute(
-      pass_forward, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kMaxDataBytes);
-  if (e != cudaSuccess) return (int)e;
-  const Chain ch{udm, tx, h0th, planes, n, k, T, B, n_diag, P, n_x};
+  const Chain ch{udm, tx, h0th, planes, n, k, k2, lc, T, B, n_diag, P, n_x,
+                 drift};
+  cudaError_t e = cudaSuccess;
   for (int s = 0; s <= T; ++s) {
     for (int i = 0; i < n_pass; ++i) {
       if (s == T && i > 0) break;  // the last stage is its phase alone
@@ -608,14 +1159,17 @@ int dq_pk_forward(float* re, float* im, const float* udm, const float* tx,
       if (p.kind == kCross) {
         cross_forward<<<dim3(p.blocks, B), kCrossThreads, 0, st>>>(
             re, im, ch, op, s);
+        e = cudaGetLastError();
       } else {
-        const int lb = pass_l_bits(p, n, k, lc);
-        const size_t smem = (size_t)2 * sizeof(float) << lb;
-        pass_forward<<<dim3(p.blocks, B), threads_for(lb), smem, st>>>(
-            re, im, ch, op, s < T ? p.op_count : 0, s,
-            p.kind == kTile ? k : lc, lb, i == 0);
+        PassArgs a{};
+        a.pl[0] = re;
+        a.pl[1] = im;
+        a.ops = op;
+        a.n_ops = s < T ? p.op_count : 0;
+        a.phase = i == 0;
+        a.signs = i == 0 ? signs_staged(n_diag) : 0;
+        e = launch_pass(p, a, ch, s, 2, false, st);
       }
-      e = cudaGetLastError();
       if (e != cudaSuccess) return (int)e;
     }
   }
@@ -632,19 +1186,19 @@ int dq_pk_backward(float* y_re, float* y_im, float* l_re, float* l_im,
                    const float* udm, const float* tx, const float* h0th,
                    const int* planes, const int* ops, const int* passes,
                    float* part, const int* slots, float* gud, float* gtx,
-                   int n_pass, int stride, int n, int k, int lc, int T,
-                   int B, int n_diag, int P, int n_x, void* stream) {
+                   int n_pass, int stride, int n, int k, int k2, int lc,
+                   int T, int B, int n_diag, int P, int n_x, int drift,
+                   void* stream) {
   const Pass* ps = reinterpret_cast<const Pass*>(passes);
-  if (bad_chain(ps, n_pass, n, k, lc, T, B, n_diag, P, n_x, 4) ||
+  (void)cudaGetLastError();  // report this call's errors alone
+  if (bad_chain(ps, n_pass, n, k, k2, lc, T, B, n_diag, P, n_x, true) ||
       stride < 1 || ps[0].part_off != 0 ||
       ps[0].part_width != ps[0].op_count + n_diag + 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaFuncSetAttribute(
-      pass_backward, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kMaxDataBytes);
-  if (e != cudaSuccess) return (int)e;
-  const Chain ch{udm, tx, h0th, planes, n, k, T, B, n_diag, P, n_x};
+  const Chain ch{udm, tx, h0th, planes, n, k, k2, lc, T, B, n_diag, P, n_x,
+                 drift};
+  cudaError_t e = cudaSuccess;
   for (int s = T; s >= 0; --s) {
     for (int i = n_pass - 1; i >= 0; --i) {
       if (s == T && i > 0) continue;  // the last stage is its phase alone
@@ -653,15 +1207,21 @@ int dq_pk_backward(float* y_re, float* y_im, float* l_re, float* l_im,
       if (p.kind == kCross) {
         cross_backward<<<dim3(p.blocks, B), kCrossThreads, 0, st>>>(
             y_re, y_im, l_re, l_im, ch, op, s, part, stride, p.part_off);
+        e = cudaGetLastError();
       } else {
-        const int lb = pass_l_bits(p, n, k, lc);
-        const size_t smem = (size_t)4 * sizeof(float) << lb;
-        pass_backward<<<dim3(p.blocks, B), threads_for(lb), smem, st>>>(
-            y_re, y_im, l_re, l_im, ch, op, s < T ? p.op_count : 0, s,
-            p.kind == kTile ? k : lc, lb, i == 0, part, stride, p.part_off,
-            p.part_width, p.op_count);
+        PassArgs a{};
+        a.pl[0] = y_re;
+        a.pl[1] = y_im;
+        a.pl[2] = l_re;
+        a.pl[3] = l_im;
+        a.ops = op;
+        a.part = part;
+        a.stride = stride;
+        a.n_ops = s < T ? p.op_count : 0;
+        a.phase = i == 0;
+        a.signs = i == 0 ? signs_staged(n_diag) : 0;
+        e = launch_pass(p, a, ch, s, 4, true, st);
       }
-      e = cudaGetLastError();
       if (e != cudaSuccess) return (int)e;
     }
   }

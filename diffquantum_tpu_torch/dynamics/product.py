@@ -47,7 +47,7 @@ from ..ops.fused_mega_hop import (invert_perm, permute_amplitude_bits,
                                   plan_chunked_hop_layout, relabel_mask)
 from ..ops.fused_product import (diag_rows_device, diag_vec_device,
                                  pack_diag_signs, parity_sign_masks,
-                                 signs_planes_device)
+                                 signs_planes_device, zero_drift)
 from .hamiltonian import ControlledHamiltonian
 
 # Largest size routed to K3 ('packed'); past it K5 ('mega'). The JAX
@@ -405,6 +405,15 @@ def _packed_tables(ham: ControlledHamiltonian, device):
     return ham._memo[key]
 
 
+def drift_is_zero(ham: ControlledHamiltonian, h0_vec) -> bool:
+    """Whether the drift h0_vec (:func:`_packed_tables`) is zero: one
+    host sync per Hamiltonian and device, memoized."""
+    key = ("h0_zero", str(h0_vec.device))
+    if key not in ham._memo:
+        ham._memo[key] = not bool(torch.any(h0_vec != 0))
+    return ham._memo[key]
+
+
 def packed_chain_inputs(ham: ControlledHamiltonian, envelope,
                         coeff: torch.Tensor, T0, T, horizon: float,
                         n_steps: int, t_sample: str = "left"):
@@ -415,7 +424,9 @@ def packed_chain_inputs(ham: ControlledHamiltonian, envelope,
     G, n_diag+1] for G sets (theta_x as :func:`fused_chain_inputs`). No
     [.., d] table is built per step: the kernels compute the phases. For
     K6, h0th, signs and the entries are in the position space of
-    :func:`_hop_layout` (see :func:`_rotation_inputs`)."""
+    :func:`_hop_layout` (see :func:`_rotation_inputs`). A Hamiltonian
+    without drift gets :func:`..ops.fused_product.zero_drift`'s h0th, so
+    that the pass kernels read none."""
     dt, dtg, (u_diag, u_oneq, u_hop), one_chain = _chain_controls(
         ham, envelope, coeff, T0, T, horizon, n_steps, t_sample)
     if isinstance(dt, torch.Tensor) and dt.ndim:
@@ -431,8 +442,10 @@ def packed_chain_inputs(ham: ControlledHamiltonian, envelope,
                    dim=1).permute(2, 0, 1)               # [T, G, n_diag+1]
     if one_chain:
         ud, theta_x = ud[:, 0], theta_x[:, 0]
-    return (ud.contiguous(), theta_x.contiguous(), half * h0_vec, signs,
-            qubits, kinds)
+    h0th = zero_drift(ham.dim, u_diag.device) \
+        if drift_is_zero(ham, h0_vec) else half * h0_vec
+    return (ud.contiguous(), theta_x.contiguous(), h0th, signs, qubits,
+            kinds)
 
 
 def _mega_hop_dispatch(n_qubits: int, psi: CP, ud, theta_x, h0th, signs,

@@ -50,11 +50,13 @@ Dispatch: CPU tensors take the plain version, CUDA tensors launch the
 kernel (``FWD_LAUNCHES`` / ``BWD_LAUNCHES`` count K1's launches,
 ``K2_FWD_LAUNCHES`` / ``K2_BWD_LAUNCHES`` K2's, ``K3_FWD_LAUNCHES`` /
 ``K3_BWD_LAUNCHES`` K3's, one per chain); there is no fallback from one
-to the other.
+to the other. The pass kernels of K3-K6 take their geometry from
+:func:`pk_plan` and their pass and op tables from :func:`_pass_layout`.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Sequence
 
@@ -946,56 +948,234 @@ def packed_adjoint_plain(psi_T: CP, lam: CP, ud, theta_x, h0th, signs,
 
 
 # ---------------------------------------------------------------------------
-# K3/K5 on the card: passes over the state in global memory
+# K3-K6 on the card: passes over the state in global memory
 # ---------------------------------------------------------------------------
 
-PASS_TILE, PASS_STRIDED, PASS_CROSS = 0, 1, 2
-_PASS_DATA_BYTES = 128 * 1024  # shared-memory planes of one pass block
-_PASS_COLS = 8                 # strided pass: 32-byte row segments
+PASS_TILE, PASS_STRIDED, PASS_CROSS, PASS_MID = 0, 1, 2, 3
 _CROSS_THREADS = 256
+# The H100 (sm_90): shared memory one block may use, an SM's, and what the
+# system reserves per block; SMs, threads and registers per SM.
+SMEM_BLOCK = 232448
+SMEM_SM = 233472
+SMEM_RESERVED = 1024
+H100_SMS = 132
+_SM_THREADS, _SM_REGS = 2048, 65536
+# The pass kernels' static shared memory (op table, stage row; the
+# backward's per-warp sums) by state planes: bounds that
+# csrc/packed_phase.cu static_asserts (kFwdStatic, kBwdStatic). A tile
+# pass also holds four 256-entry unit-phase tables (float2) per staged
+# sign plane.
+PK_STATIC_BYTES = {2: 5 * 1024, 4: 21 * 1024}
+PK_LUT_BYTES = 4 * 256 * 8
+# 2^r amplitudes a thread holds in a round, by state planes: r in
+# [PK_MIN_RBITS, PK_MAX_RBITS] aiming at PK_THREADS threads a block (the
+# backward's 2^4 amplitudes of y and lambda spill at 128 registers)
+PK_MIN_RBITS = {2: 3, 4: 3}
+PK_MAX_RBITS = {2: 5, 4: 4}
+PK_THREADS = {2: 256, 4: 512}
+PK_MAX_STAGES = 3
+PK_SEG_COLS = 8               # strided rows of 32 bytes where they fit
+PK_MAX_COLS = 6               # up to 256-byte rows
+PK_PASSES = (2, 3)            # passes a step: tile, [middle,] strided
 
 
-def _tile_plan(n_qubits: int, planes: int) -> tuple[int, int]:
-    """(k, lc) of the pass kernels for ``planes`` f32 planes per amplitude
-    (2 forward: the state; 4 backward: y and lambda). A tile pass block
-    holds 2^k consecutive amplitudes (the low k bits, qubits n-k..n-1); a
-    strided pass block holds all 2^(n-k) rows of 2^lc consecutive low-bit
-    columns (the high n-k bits). Both fit ``_PASS_DATA_BYTES``; k splits
-    the bits so that both passes have blocks to spread over the card and
-    the strided rows stay 32-byte segments where the budget allows (at 24
-    qubits the backward's take 16)."""
-    per = 4 * planes
-    tile_bits = (_PASS_DATA_BYTES // per).bit_length() - 1
-    row_bits = (_PASS_DATA_BYTES // (per * _PASS_COLS)).bit_length() - 1
-    k = min(n_qubits, tile_bits,
-            max(n_qubits - row_bits, (n_qubits + 3) // 2))
-    cols = min(_PASS_COLS, 1 << k,
-               _PASS_DATA_BYTES // (per << (n_qubits - k)))
-    if cols < 1:
+def _pk_regs(planes: int, rbits: int) -> int:
+    """Registers a thread of a pass kernel may take (its launch bounds:
+    the forward at r <= 4 two 512-thread blocks an SM, else one)."""
+    return 64 if planes == 2 and rbits <= 4 else 128
+
+
+@dataclasses.dataclass(frozen=True)
+class PassGeom:
+    """One pass kind's launch geometry. A tile holds 2^lb amplitudes
+    (``words`` f32 words each: the state planes and, in a tile pass, the
+    staged sign planes); in each round, ``threads`` threads hold 2^rbits
+    of them in registers (2^(lb - rbits) groups); ``blocks`` blocks per
+    member walk the member's ``tiles`` tiles through a ring of ``stages``
+    buffers filled by cp.async; ``per_sm`` blocks fit an SM. A pass whose
+    ops take one round runs direct instead (:func:`_pass_layout`: stages
+    0, no ring), with ``direct_blocks`` blocks per member: as many as the
+    SMs' threads and registers hold."""
+    lb: int
+    words: int
+    rbits: int
+    threads: int
+    stages: int
+    tiles: int
+    blocks: int
+    per_sm: int
+    static_bytes: int
+    lut_bytes: int
+    direct_blocks: int
+
+    @property
+    def stage_bytes(self) -> int:
+        return 4 * self.words << self.lb
+
+    @property
+    def block_bytes(self) -> int:
+        """Shared memory of one block: its ring, its phase tables and its
+        static tables."""
+        return self.stages * self.stage_bytes + self.lut_bytes \
+            + self.static_bytes
+
+    @property
+    def resident(self) -> int:
+        """Tiles an SM holds at once (blocks x ring stages)."""
+        return self.per_sm * self.stages
+
+
+@dataclasses.dataclass(frozen=True)
+class PkPlan:
+    """The pass kernels' geometry for n qubits, ``planes`` f32 state
+    planes (2 forward, 4 backward) and ``members`` states. A step's ops
+    split by bits: the tile pass ``tile`` takes the low k bits, the
+    middle pass ``mid`` the bits k..k2-1 and the strided pass
+    ``strided`` the bits k2..n-1, both in rows of 2^lc low-bit columns
+    (``mid`` is None when k2 = k: two passes a step; ``strided`` None
+    when k2 = n). Cross passes take ``_cross_blocks``."""
+    n: int
+    planes: int
+    members: int
+    k: int
+    k2: int
+    lc: int
+    tile: PassGeom
+    mid: PassGeom | None
+    strided: PassGeom | None
+
+    @property
+    def seg_bytes(self) -> int:
+        """Bytes of one row segment of a middle or strided tile (0 when
+        the tile pass holds every bit)."""
+        return 4 << self.lc if self.k < self.n else 0
+
+    @property
+    def passes(self) -> tuple:
+        return tuple(g for g in (self.tile, self.mid, self.strided)
+                     if g is not None)
+
+    def geom(self, kind: int) -> PassGeom:
+        return {PASS_TILE: self.tile, PASS_MID: self.mid,
+                PASS_STRIDED: self.strided}[kind]
+
+
+def _pass_geom(lb: int, words: int, planes: int, tiles: int, members: int,
+               sms: int, lut_bytes: int = 0) -> PassGeom | None:
+    """The geometry of a pass whose tiles hold 2^lb amplitudes of
+    ``words`` words (and ``lut_bytes`` of phase tables a block), or None
+    if no tile fits a block: of the ring depths that fit, one that keeps
+    two tiles resident per SM (blocks x stages: one loads while one
+    computes) with the most blocks an SM (more warps to hide latency),
+    then the most tiles resident."""
+    aim = lb - PK_THREADS[planes].bit_length() + 1
+    rbits = min(lb, max(PK_MIN_RBITS[planes], aim, lb - 9))  # <= 512 groups
+    if lb < 2 or rbits > PK_MAX_RBITS[planes]:
+        return None
+    threads = max(32, 1 << (lb - rbits))
+    static = PK_STATIC_BYTES[planes] + lut_bytes
+    stage = 4 * words << lb
+    by_regs = _SM_REGS // (threads * _pk_regs(planes, rbits))
+    direct = min(tiles, max(1, min(
+        _SM_THREADS // threads, by_regs,
+        SMEM_SM // (static + SMEM_RESERVED)) * sms // members))
+    best = None
+    for stages in range(1, PK_MAX_STAGES + 1):
+        if stages * stage + static > SMEM_BLOCK:
+            break
+        per_sm = max(1, min(
+            SMEM_SM // (stages * stage + static + SMEM_RESERVED),
+            _SM_THREADS // threads, by_regs))
+        blocks = min(tiles, max(1, per_sm * sms // members))
+        used = min(stages, -(-tiles // blocks))  # no stage beyond its tiles
+        shares = min(per_sm * used, -(-tiles * members // sms))
+        key = (min(shares, 2), per_sm, shares)
+        if best is None or key > best[0]:
+            best = (key, PassGeom(lb, words, rbits, threads, used, tiles,
+                                  blocks, per_sm, PK_STATIC_BYTES[planes],
+                                  lut_bytes, direct))
+    return None if best is None else best[1]
+
+
+@functools.lru_cache(maxsize=256)
+def pk_plan(n_qubits: int, planes: int, n_diag: int, members: int = 1,
+            sms: int = H100_SMS) -> PkPlan:
+    """The pass kernels' geometry (plain Python; csrc/packed_phase.cu
+    checks it and chooses none). Over the splits k <= k2 <= n and the
+    columns lc whose tiles fit one block's shared memory (a tile pass
+    stages ceil(n_diag / 30) sign planes and holds their phase tables),
+    with the passes a step may take in ``PK_PASSES``, it prefers in
+    order: 32-byte rows (else the widest that fit); two tiles resident
+    per SM in every pass (one loads while one computes); fewer passes a
+    step (each moves the whole state); blocks enough to fill the card
+    twice over; tiles of up to 2^12 amplitudes in the smallest pass; more
+    tiles resident in the pass with fewer (then in the tile pass, which
+    also computes the phases); more tiles; and the smaller k and lc."""
+    n = n_qubits
+    signs = -(-n_diag // PLANE_BITS)
+    best = None
+    for k in range(1, n + 1):
+        for k2 in range(k, n + 1):
+            n_pass = 1 + (k2 > k) + (k2 < n)
+            if n_pass not in PK_PASSES and k < n:
+                continue
+            cols = range(min(k, PK_MAX_COLS) + 1) if k < n else (0,)
+            for lc in cols:
+                tile = _pass_geom(k, planes + signs, planes, 1 << (n - k),
+                                  members, sms, signs * PK_LUT_BYTES)
+                mid = None if k2 == k else _pass_geom(
+                    k2 - k + lc, planes, planes, 1 << (n - k2 + k - lc),
+                    members, sms)
+                strided = None if k2 == n else _pass_geom(
+                    n - k2 + lc, planes, planes, 1 << (k2 - lc), members,
+                    sms)
+                if tile is None or (k2 > k and mid is None) \
+                        or (k2 < n and strided is None):
+                    continue
+                geoms = [g for g in (tile, mid, strided) if g is not None]
+                tiles = min(g.tiles for g in geoms)
+                key = (k == n or (1 << lc) >= PK_SEG_COLS, min(lc, 3),
+                       min(min(g.resident, 2) for g in geoms), -n_pass,
+                       min(tiles * members, 2 * sms),
+                       min(min(g.lb for g in geoms), 12),
+                       min(g.resident for g in geoms), tile.resident, tiles,
+                       -k, -lc)
+                if best is None or key > best[0]:
+                    best = (key, PkPlan(n, planes, members, k, k2, lc, tile,
+                                        mid, strided))
+    if best is None:
         raise ValueError(f"{n_qubits} qubits do not fit the pass kernels")
-    return k, cols.bit_length() - 1
+    return best[1]
 
 
 def _op_bits(op) -> int:
     return int(op[2]) | int(op[3])
 
 
-def _pass_plan(plan: np.ndarray, n_qubits: int, k: int, lc: int):
+def _pass_plan(plan: np.ndarray, n_qubits: int, k: int, lc: int,
+               k2: int = None):
     """Group one Strang step's ordered ops into passes: the first a tile
-    pass (the stage's phase, then ops on the low k bits), then strided
-    passes (ops on the high bits) and cross passes (one op with a bit on
-    each side, e.g. a hop across the tile boundary). An op joins the
-    latest pass of its kind only when it commutes with every op after
-    that pass (disjoint bits) and that pass holds fewer than ``MAX_OPS``
-    ops, so the product is the plan's own. Returns (passes [(kind, [plan
-    rows])], table [n_ops, width] int32: each row with its masks in its
-    pass's local index space, its other columns as they are)."""
-    low = (1 << k) - 1
+    pass (the stage's phase, then ops on the low k bits), then middle
+    passes (ops on the bits k..k2-1), strided passes (ops on the bits
+    from k2; k2 = k by default: two pass kinds) and cross passes (one op
+    with bits on two sides, e.g. a hop across the tile boundary). An op
+    joins the latest pass of its kind only when it commutes with every op
+    after that pass (disjoint bits) and that pass holds fewer than
+    ``MAX_OPS`` ops, so the product is the plan's own. With k = n every
+    op is a tile op. Returns (passes [(kind, [plan rows])], table [n_ops,
+    width] int32: each row with its masks in its pass's local index space
+    (a middle or strided row's bits above the lc columns), its other
+    columns as they are)."""
+    k2 = k if k2 is None else k2
+    ranges = ((PASS_TILE, 0, k), (PASS_MID, k, k2),
+              (PASS_STRIDED, k2, n_qubits))
     passes = [(PASS_TILE, [])]
     for op in plan:
         bits = _op_bits(op)
-        kind = PASS_TILE if not bits & ~low else (
-            PASS_STRIDED if not bits & low else PASS_CROSS)
+        kind = PASS_CROSS
+        for kd, lo, hi in ranges:
+            if lo < hi and not bits & ~(((1 << hi) - 1) ^ ((1 << lo) - 1)):
+                kind = kd
         target = None
         if kind != PASS_CROSS:
             for pk, ops in reversed(passes):
@@ -1010,48 +1190,98 @@ def _pass_plan(plan: np.ndarray, n_qubits: int, k: int, lc: int):
             target.append(op)
     rows = []
     for pk, ops in passes:
+        first = {PASS_MID: k, PASS_STRIDED: k2}.get(pk)
         for op in ops:
             row = [int(v) for v in op]
-            if pk == PASS_STRIDED:
-                row[2], row[3] = (row[2] >> k) << lc, (row[3] >> k) << lc
+            if first is not None:
+                row[2] = (row[2] >> first) << lc
+                row[3] = (row[3] >> first) << lc
             rows.append(row)
     return passes, np.asarray(rows, dtype=np.int32).reshape(
         len(rows), plan.shape[1])
 
 
-def _pass_blocks(kind: int, n_qubits: int, k: int, lc: int) -> int:
+def _pass_rounds(masks, lb: int, rbits: int) -> list[int]:
+    """Round masks of a pass's ordered ops (their local bit masks): the
+    ops split into runs whose bits fit ``rbits`` bits, each run's mask
+    those bits, topped up to ``rbits`` bits from the highest free ones
+    (so that the threads of a round spread over the low bits)."""
+    def close(cur):
+        free = [b for b in range(lb - 1, -1, -1) if not cur >> b & 1]
+        for b in free[:rbits - bin(cur).count("1")]:
+            cur |= 1 << b
+        return cur
+    out, run, cur = [], 0, 0
+    for m in masks:
+        if bin(cur | m).count("1") > rbits:
+            out += [close(cur)] * run
+            run, cur = 0, 0
+        run, cur = run + 1, cur | m
+    return out + [close(cur)] * run
+
+
+def _pass_shape(kind: int, n_qubits: int, k: int, lc: int, k2: int = None):
+    """(local bits, columns, the rows' first bit, row bits) of a tile,
+    middle or strided pass: the kernels' index map (amp_index)."""
+    k2 = k if k2 is None else k2
     if kind == PASS_TILE:
-        return 1 << (n_qubits - k)
-    if kind == PASS_STRIDED:
-        return 1 << (k - lc)
+        return k, k, k, 0
+    if kind == PASS_MID:
+        return k2 - k + lc, lc, k, k2 - k
+    return n_qubits - k2 + lc, lc, k2, n_qubits - k2
+
+
+def _pass_tiles(kind: int, n_qubits: int, k: int, lc: int,
+                k2: int = None) -> int:
+    """Tiles of a tile, middle or strided pass per member."""
+    return 1 << (n_qubits - _pass_shape(kind, n_qubits, k, lc, k2)[0])
+
+
+def _cross_blocks(n_qubits: int) -> int:
     return max(1, min(1024, (1 << n_qubits) // 4 // _CROSS_THREADS))
 
 
 @functools.lru_cache(maxsize=64)
 def _pass_layout(plan_key: tuple, n_qubits: int, planes: int,
-                 n_diag: int, n_x: int = None):
+                 n_diag: int, n_x: int = None, members: int = 1,
+                 sms: int = H100_SMS):
     """For a plan (packed op rows as a tuple) and ``planes`` (2 forward,
-    4 backward): (k, lc, passes int32 [n_pass, 6]
-    = (kind, first op row, op count, blocks, partial offset, partial
-    width), op table [n_ops, 5], slot table, partial floats per stage and
-    member). Backward blocks write their partial sums at (offset + block
-    * width + column): a tile pass's columns are its ops, then
-    S_0..S_{n_diag-1} and S0. The slot table (int32, flat) lists every
-    (pass, column) where each of the ``n_x`` angle slots (default: the
-    largest slot + 1) has a row: ``n_x + 1`` offsets, then per location
-    (partial offset, blocks, width, column), each slot's locations in
-    plan order."""
+    4 backward) over ``members`` states: (k, lc, passes int32 [n_pass, 9]
+    = (kind, first op row, op count, blocks per member, partial offset,
+    partial width, register bits, threads, ring stages: 0 for a pass of
+    one round, which runs direct), op table [n_ops, 6] (the rows with
+    local masks and, last, their round's mask), slot table, partial
+    floats per stage and member), the geometry from :func:`pk_plan`
+    (whose k2 the middle passes use). Backward blocks write their partial
+    sums at (offset + block * width + column): a tile pass's columns are
+    its ops, then S_0..S_{n_diag-1} and S0. The slot table (int32, flat)
+    lists every (pass, column) where each of the ``n_x`` angle slots
+    (default: the largest slot + 1) has a row: ``n_x + 1`` offsets, then
+    per location (partial offset, blocks, width, column), each slot's
+    locations in plan order."""
     plan = np.asarray(plan_key, dtype=np.int32).reshape(len(plan_key), 5)
     if n_x is None:
         n_x = int(plan[:, 0].max()) + 1 if len(plan) else 0
-    k, lc = _tile_plan(n_qubits, planes)
-    passes, table = _pass_plan(plan, n_qubits, k, lc)
+    geo = pk_plan(n_qubits, planes, n_diag, members, sms)
+    k, lc = geo.k, geo.lc
+    passes, table = _pass_plan(plan, n_qubits, k, lc, geo.k2)
+    rounds = np.zeros((len(table), 1), np.int32)
     desc, locs = [], [[] for _ in range(n_x)]
     first, off = 0, 0
     for i, (kind, ops) in enumerate(passes):
-        blocks = _pass_blocks(kind, n_qubits, k, lc)
+        if kind == PASS_CROSS:
+            blocks, shape = _cross_blocks(n_qubits), (0, 0, 0)
+        else:
+            g = geo.geom(kind)
+            local = table[first:first + len(ops)]
+            masks = _pass_rounds([int(r[2]) | int(r[3]) for r in local],
+                                 g.lb, g.rbits)
+            rounds[first:first + len(ops), 0] = masks
+            one = len(set(masks)) <= 1
+            blocks = g.direct_blocks if one else g.blocks
+            shape = (g.rbits, g.threads, 0 if one else g.stages)
         width = len(ops) + (n_diag + 1 if i == 0 else 0)
-        desc.append((kind, first, len(ops), blocks, off, width))
+        desc.append((kind, first, len(ops), blocks, off, width) + shape)
         for col, op in enumerate(ops):
             locs[int(op[0])].append((off, blocks, width, col))
         first += len(ops)
@@ -1060,17 +1290,42 @@ def _pass_layout(plan_key: tuple, n_qubits: int, planes: int,
     slots = np.concatenate([starts, np.asarray(
         [x for v in locs for loc in v for x in loc], np.int64)]
     ).astype(np.int32)
-    return (k, lc, np.asarray(desc, np.int32).reshape(-1, 6), table, slots,
-            off)
+    return (k, lc, np.asarray(desc, np.int32).reshape(-1, 9),
+            np.concatenate([table, rounds], axis=1), slots, off)
+
+
+_ZERO_DRIFT: dict = {}
+
+
+def zero_drift(d: int, device) -> torch.Tensor:
+    """A zero h0th [d] on ``device`` that the pass kernels know to be zero
+    (they then read no drift): one cached tensor per (d, device), for
+    :func:`..dynamics.product.packed_chain_inputs` to hand out when a
+    Hamiltonian has no drift."""
+    key = (d, str(torch.device(device)))
+    if key not in _ZERO_DRIFT:
+        _ZERO_DRIFT[key] = torch.zeros(d, dtype=torch.float32, device=device)
+    return _ZERO_DRIFT[key]
+
+
+def _drift_flag(h0th: torch.Tensor) -> int:
+    """0 for a :func:`zero_drift` tensor never written since, else 1."""
+    z = _ZERO_DRIFT.get((h0th.shape[0], str(h0th.device)))
+    return 0 if h0th is z and h0th._version == 0 else 1
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _packed_lib() -> ctypes.CDLL:
     lib = _build.load("packed_phase")
     if not getattr(lib, "_dq_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dq_pk_forward.argtypes = [p] * 8 + [i] * 9 + [p]
+        lib.dq_pk_forward.argtypes = [p] * 8 + [i] * 11 + [p]
         lib.dq_pk_forward.restype = i
-        lib.dq_pk_backward.argtypes = [p] * 14 + [i] * 10 + [p]
+        lib.dq_pk_backward.argtypes = [p] * 14 + [i] * 12 + [p]
         lib.dq_pk_backward.restype = i
         lib.dq_pk_error_string.argtypes = [i]
         lib.dq_pk_error_string.restype = ctypes.c_char_p
@@ -1082,16 +1337,26 @@ def _host_ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
+def _device_layout(plan, n_qubits, planes, n_diag, n_x, members, device):
+    """(k, k2, lc, passes, device op table, slots, stride) of
+    :func:`_pass_layout` and :func:`pk_plan` for a plan on ``device``."""
+    sms = _sm_count(device)
+    k, lc, desc, table, slots, stride = _pass_layout(
+        tuple(map(tuple, plan.tolist())), n_qubits, planes, n_diag, n_x,
+        members, sms)
+    k2 = pk_plan(n_qubits, planes, n_diag, members, sms).k2
+    ops = _plan_tensor(tuple(map(tuple, table.tolist())), device)
+    return k, k2, lc, desc, ops, slots, stride
+
+
 def _packed_forward_cuda(psi_re, psi_im, udm, tx, h0th, signs, plan,
                          n_qubits, what):
-    """One forward chain on the card (K3, K5 or K6): the state [B, d] is
-    copied once and updated in place by the pass launches (~2T+1 for
-    K3/K5's plans) that ``dq_pk_forward`` enqueues."""
+    """One forward chain on the card (K3-K6): the state [B, d] is copied
+    once and updated in place by the pass launches (~2T+1 for K3/K5's
+    plans) that ``dq_pk_forward`` enqueues."""
     b, n_diag = psi_re.shape[0], udm.shape[2] - 2
-    plan_key = tuple(map(tuple, plan.tolist()))
-    k, lc, desc, table, _, _ = _pass_layout(plan_key, n_qubits, 2, n_diag,
-                                            tx.shape[2])
-    ops = _plan_tensor(tuple(map(tuple, table.tolist())), psi_re.device)
+    k, k2, lc, desc, ops, _, _ = _device_layout(
+        plan, n_qubits, 2, n_diag, tx.shape[2], b, psi_re.device)
     out_re = psi_re.clone(memory_format=torch.contiguous_format)
     out_im = psi_im.clone(memory_format=torch.contiguous_format)
     lib = _packed_lib()
@@ -1099,8 +1364,9 @@ def _packed_forward_cuda(psi_re, psi_im, udm, tx, h0th, signs, plan,
         stream = torch.cuda.current_stream(psi_re.device).cuda_stream
         code = lib.dq_pk_forward(
             _ptr(out_re), _ptr(out_im), _ptr(udm), _ptr(tx), _ptr(h0th),
-            _ptr(signs), _ptr(ops), _host_ptr(desc), len(desc), n_qubits, k,
-            lc, tx.shape[0], b, n_diag, signs.shape[0], tx.shape[2], stream)
+            _ptr(signs), _ptr(ops), _host_ptr(desc), len(desc), n_qubits,
+            k, k2, lc, tx.shape[0], b, n_diag,
+            signs.shape[0], tx.shape[2], _drift_flag(h0th), stream)
     if code != 0:
         raise RuntimeError(f"{what} forward launch failed: "
                            f"{lib.dq_pk_error_string(code).decode()} "
@@ -1115,11 +1381,9 @@ def _packed_backward_cuda(out_re, out_im, lam_re, lam_im, udm, tx, h0th,
     partial sums; one reduction launch sums them in a fixed order."""
     b, n_diag = out_re.shape[0], udm.shape[2] - 2
     n_steps, n_x = tx.shape[0], tx.shape[2]
-    plan_key = tuple(map(tuple, plan.tolist()))
-    k, lc, desc, table, slots, stride = _pass_layout(plan_key, n_qubits, 4,
-                                                     n_diag, n_x)
     dev = out_re.device
-    ops = _plan_tensor(tuple(map(tuple, table.tolist())), dev)
+    k, k2, lc, desc, ops, slots, stride = _device_layout(
+        plan, n_qubits, 4, n_diag, n_x, b, dev)
     slot_tab = _int_tensor(tuple(slots.tolist()), dev)
     y_re = out_re.clone(memory_format=torch.contiguous_format)
     y_im = out_im.clone(memory_format=torch.contiguous_format)
@@ -1135,9 +1399,9 @@ def _packed_backward_cuda(out_re, out_im, lam_re, lam_im, udm, tx, h0th,
         code = lib.dq_pk_backward(
             _ptr(y_re), _ptr(y_im), _ptr(l_re), _ptr(l_im), _ptr(udm),
             _ptr(tx), _ptr(h0th), _ptr(signs), _ptr(ops), _host_ptr(desc),
-            _ptr(part), _ptr(slot_tab), _ptr(gud), _ptr(gtx), len(desc),
-            stride, n_qubits, k, lc, n_steps, b, n_diag, signs.shape[0],
-            n_x, stream)
+            _ptr(part), _ptr(slot_tab), _ptr(gud),
+            _ptr(gtx), len(desc), stride, n_qubits, k, k2, lc, n_steps, b,
+            n_diag, signs.shape[0], n_x, _drift_flag(h0th), stream)
     if code != 0:
         raise RuntimeError(f"{what} backward launch failed: "
                            f"{lib.dq_pk_error_string(code).decode()} "

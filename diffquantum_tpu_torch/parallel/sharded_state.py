@@ -45,10 +45,11 @@ import torch
 from ..dynamics.hamiltonian import ControlledHamiltonian
 from ..dynamics.product import (_amplitudes, _control_rows, _packed_tables,
                                 _pauli_kind, _symmetrize_rots, _tables,
-                                apply_hop_rot, split_structure_ext)
+                                apply_hop_rot, drift_is_zero,
+                                split_structure_ext)
 from ..ops import cpx
 from ..ops.cpx import CP
-from ..ops.fused_product import MAX_OPS, MAX_QUBITS
+from ..ops.fused_product import MAX_OPS, MAX_QUBITS, zero_drift
 from .comm import exchange, psum, replicated
 from .mesh import Mesh
 
@@ -415,7 +416,8 @@ def _evolve_sharded_chunked(ham, envelope, coeff, psi, T0, T, horizon,
     dt, u = _amplitudes(envelope, coeff, T0, T, horizon, n_steps, "left")
     u_diag, u_oneq, _ = _control_rows(ham, u, torch.float32)  # [n_k, T]
     half = 0.5 * dt
-    h0th = (half * _local(h0_vec, d, sax)).contiguous()
+    h0th = zero_drift(d // sax.size, dev) if drift_is_zero(
+        ham, h0_vec) else (half * _local(h0_vec, d, sax)).contiguous()
     ud = torch.cat([half * u_diag.T * scales,
                     (half * (u_diag.T @ consts))[:, None]], dim=1)
     m = len(oneq_qubits)

@@ -50,7 +50,7 @@ def test_port_imports_no_jax():
     files += [REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch_step.py",
               REPO / "scripts" / "sharded_multicard.py"]
     files += [REPO / "scripts" / f"{name}.py" for name in (
-        "k7_times", "k7_variants", "grid_barrier_bench")]
+        "k7_times", "k7_variants", "grid_barrier_bench", "pk_times")]
     assert len(files) > 15
     names = {str(f.relative_to(REPO / "diffquantum_tpu_torch"))
              for f in files if "diffquantum_tpu_torch" in f.parts}

@@ -24,6 +24,7 @@ from diffquantum_tpu_torch.ops import fused_chunked as tfc
 from diffquantum_tpu_torch.ops import fused_mega_hop as tmh
 from diffquantum_tpu_torch.ops import fused_product as tfp
 from diffquantum_tpu_torch.ops.cpx import CP
+from test_torch_pk_plan import apply_passes
 
 
 def _rel_close(got, want, rel):
@@ -190,33 +191,11 @@ def test_b_commute_rows_take_full_angle():
 # (b) the scaled-row pass plan the card's kernels run, emulated
 # ---------------------------------------------------------------------------
 
-def _apply_passes(re, im, passes, table, n, k, lc, tx_row):
-    """One step's rows as the pass kernels apply them (see
-    tests/test_torch_packed.py::_apply_passes), each row by its scale
-    times its slot's angle."""
-    row = 0
-    for kind, ops in passes:
-        local = table[row:row + len(ops)]
-        row += len(ops)
-        if kind == tfp.PASS_CROSS:
-            for op in local:
-                a = tfp._row_scale(op) * tx_row[int(op[0])]
-                re, im = tfp._rot_plain(re, im, op, np.cos(a), np.sin(a),
-                                        2**n)
-            continue
-        lcp = k if kind == tfp.PASS_TILE else lc
-        lbits = k if kind == tfp.PASS_TILE else n - k + lc
-        re, im = re.clone(), im.clone()
-        for bi in range(tfp._pass_blocks(kind, n, k, lc)):
-            l_ = torch.arange(2**lbits)
-            idx = (bi << lcp) + (l_ & ((1 << lcp) - 1)) + ((l_ >> lcp) << k)
-            br, bim = re[idx], im[idx]
-            for op in local:
-                a = tfp._row_scale(op) * tx_row[int(op[0])]
-                br, bim = tfp._rot_plain(br, bim, op, np.cos(a), np.sin(a),
-                                         2**lbits)
-            re[idx], im[idx] = br, bim
-    return re, im
+def _apply_passes(re, im, passes, table, n, k, lc, tx_row, k2=None):
+    """One step's rows as the pass kernels apply them, round by round,
+    each row by its scale times its slot's angle (see
+    tests/test_torch_pk_plan.py::apply_passes)."""
+    return apply_passes(re, im, passes, table, n, k, lc, tx_row, k2)
 
 
 @pytest.mark.parametrize("n,f", [(12, 3), (14, 4)])
@@ -234,7 +213,8 @@ def test_hop_pass_plan_applies_the_rows(n, f, planes, monkeypatch):
     n_x, n_diag = len(pos), len(pairs)
     k, lc, desc, table, slots, stride = tfp._pass_layout(
         tuple(map(tuple, rows.tolist())), n, planes, n_diag, n_x)
-    passes, _ = tfp._pass_plan(rows, n, k, lc)
+    k2 = tfp.pk_plan(n, planes, n_diag).k2
+    passes, _ = tfp._pass_plan(rows, n, k, lc, k2)
     assert any(kd == tfp.PASS_CROSS for kd, _ in passes)
     rng = np.random.default_rng(n)
     re, im = (torch.tensor(rng.standard_normal(2**n)) for _ in range(2))
@@ -244,7 +224,8 @@ def test_hop_pass_plan_applies_the_rows(n, f, planes, monkeypatch):
         a = tfp._row_scale(op) * tx_row[int(op[0])]
         want_re, want_im = tfp._rot_plain(want_re, want_im, op, np.cos(a),
                                           np.sin(a), 2**n)
-    got_re, got_im = _apply_passes(re, im, passes, table, n, k, lc, tx_row)
+    got_re, got_im = _apply_passes(re, im, passes, table, n, k, lc, tx_row,
+                                   k2)
     np.testing.assert_allclose(got_re.numpy(), want_re.numpy(), atol=1e-12)
     np.testing.assert_allclose(got_im.numpy(), want_im.numpy(), atol=1e-12)
 
@@ -253,7 +234,7 @@ def test_hop_pass_plan_applies_the_rows(n, f, planes, monkeypatch):
     # location of a slot
     g_row = rng.standard_normal(len(table))
     part = np.zeros(stride)
-    for i, (kind, first, count, blocks, off, width) in enumerate(desc):
+    for i, (kind, first, count, blocks, off, width, *_) in enumerate(desc):
         for col in range(count):
             r = first + col
             part[off + np.arange(blocks) * width + col] = \

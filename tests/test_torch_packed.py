@@ -24,6 +24,7 @@ from diffquantum_tpu_torch.dynamics import hamiltonian as tham
 from diffquantum_tpu_torch.dynamics import product as tprod
 from diffquantum_tpu_torch.ops import fused_product as tfp
 from diffquantum_tpu_torch.ops.cpx import CP
+from test_torch_pk_plan import apply_passes
 
 N = 10
 D = 2**N
@@ -198,34 +199,11 @@ def test_k3_wrapper_rejects_bad_inputs():
 # the card's pass plan, emulated on the CPU
 # ---------------------------------------------------------------------------
 
-def _apply_passes(re, im, passes, table, n, k, lc, tx_row):
-    """One step's ops as the pass kernels apply them: each tile or
-    strided block gathers its amplitudes by the kernels' index map
-    (amp_index), applies its pass's ops with local masks, and scatters
-    back; a cross pass applies its op to the whole state."""
-    row = 0
-    for kind, ops in passes:
-        local = table[row:row + len(ops)]
-        row += len(ops)
-        if kind == tfp.PASS_CROSS:
-            for op in local:
-                a = tx_row[int(op[0])]
-                re, im = tfp._rot_plain(re, im, op, np.cos(a), np.sin(a),
-                                        2**n)
-            continue
-        lcp = k if kind == tfp.PASS_TILE else lc
-        lbits = k if kind == tfp.PASS_TILE else n - k + lc
-        re, im = re.clone(), im.clone()
-        for bi in range(tfp._pass_blocks(kind, n, k, lc)):
-            l_ = torch.arange(2**lbits)
-            idx = (bi << lcp) + (l_ & ((1 << lcp) - 1)) + ((l_ >> lcp) << k)
-            br, bim = re[idx], im[idx]
-            for op in local:
-                a = tx_row[int(op[0])]
-                br, bim = tfp._rot_plain(br, bim, op, np.cos(a), np.sin(a),
-                                         2**lbits)
-            re[idx], im[idx] = br, bim
-    return re, im
+def _apply_passes(re, im, passes, table, n, k, lc, tx_row, k2=None):
+    """One step's ops as the pass kernels apply them (tile, middle,
+    strided and cross passes, each pass round by round): see
+    tests/test_torch_pk_plan.py::apply_passes."""
+    return apply_passes(re, im, passes, table, n, k, lc, tx_row, k2)
 
 
 @pytest.mark.parametrize("n,plan", [(10, "mixed"), (12, "ring"),
@@ -242,14 +220,21 @@ def test_pass_plan_applies_the_plan(n, plan, planes):
     ops = tfp._packed_plan(xq, kinds, n)
     k, lc, desc, table, slots, _ = tfp._pass_layout(
         tuple(map(tuple, ops.tolist())), n, planes, 4)
-    passes, _ = tfp._pass_plan(ops, n, k, lc)
+    geo = tfp.pk_plan(n, planes, 4)
+    passes, _ = tfp._pass_plan(ops, n, k, lc, geo.k2)
     assert sorted(int(o[0]) for _, p in passes for o in p) \
         == list(range(len(ops)))
     assert len(desc) == len(passes) and desc[0][0] == tfp.PASS_TILE
-    for kind, first, count, blocks, off, width in desc:
-        local_bits = k if kind == tfp.PASS_TILE else n - k + lc
+    for kind, first, count, blocks, off, width, rbits, threads, stages \
+            in desc:
         if kind != tfp.PASS_CROSS:
-            assert 4 * planes << local_bits <= tfp._PASS_DATA_BYTES
+            g = geo.geom(kind)
+            assert g.lb == tfp._pass_shape(kind, n, k, lc, geo.k2)[0]
+            assert (rbits, threads) == (g.rbits, g.threads)
+            # a pass of one round runs direct: no ring, more blocks
+            assert (blocks, stages) in ((g.blocks, g.stages),
+                                        (g.direct_blocks, 0))
+            assert g.block_bytes <= tfp.SMEM_BLOCK  # ring + tables
     rng = np.random.default_rng(n)
     re, im = (torch.tensor(rng.standard_normal(2**n)) for _ in range(2))
     tx_row = 0.7 * rng.standard_normal(len(ops))
@@ -258,7 +243,8 @@ def test_pass_plan_applies_the_plan(n, plan, planes):
         a = tx_row[int(op[0])]
         want_re, want_im = tfp._rot_plain(want_re, want_im, op, np.cos(a),
                                           np.sin(a), 2**n)
-    got_re, got_im = _apply_passes(re, im, passes, table, n, k, lc, tx_row)
+    got_re, got_im = _apply_passes(re, im, passes, table, n, k, lc, tx_row,
+                                   geo.k2)
     np.testing.assert_allclose(got_re.numpy(), want_re.numpy(), atol=1e-12)
     np.testing.assert_allclose(got_im.numpy(), want_im.numpy(), atol=1e-12)
     if plan == "mixed":  # the hop (2, 8) spans the tile boundary
@@ -267,20 +253,29 @@ def test_pass_plan_applies_the_plan(n, plan, planes):
 
 @pytest.mark.parametrize("n", [18, 20, 24])
 def test_tile_plan_at_the_frontier(n):
-    """The ring MaxCut's plan is one tile and one strided pass per step;
-    blocks fit shared memory and rows stay 32-byte segments except the
-    24-qubit backward's (16 bytes)."""
+    """The ring MaxCut's plan is one tile and one strided pass per step at
+    18 and 20 qubits and a tile, a middle and a strided pass at 24 (where
+    two passes would hold one 128-256 KB tile a block); each block's ring
+    stages (with the tile pass's sign plane and phase tables) and static
+    tables fit the card's 227 KB of shared memory, and rows stay 32-byte
+    segments or longer."""
     plan = tfp._packed_plan(tuple(range(n)), ("x",) * n, n)
     for planes in (2, 4):
         k, lc, desc, _, slots, stride = tfp._pass_layout(
             tuple(map(tuple, plan.tolist())), n, planes, n)
-        assert [int(r[0]) for r in desc] == [tfp.PASS_TILE, tfp.PASS_STRIDED]
-        assert int(desc[0][2]) == k and int(desc[1][2]) == n - k
-        assert 4 * planes << k <= tfp._PASS_DATA_BYTES
-        assert 4 * planes << (n - k + lc) <= tfp._PASS_DATA_BYTES
-        assert lc == (2 if (n, planes) == (24, 4) else 3)
-        assert stride == int(desc[0][3]) * (k + n + 1) \
-            + int(desc[1][3]) * (n - k)
+        geo = tfp.pk_plan(n, planes, n)
+        # (qubit q is bit n-1-q: the ring's ops meet the high bits first)
+        kinds = [tfp.PASS_TILE, tfp.PASS_STRIDED] if n < 24 else \
+            [tfp.PASS_TILE, tfp.PASS_STRIDED, tfp.PASS_MID]
+        assert [int(r[0]) for r in desc] == kinds
+        assert [int(r[2]) for r in desc] == \
+            [k, n - geo.k2] + ([geo.k2 - k] if n == 24 else [])
+        for g in geo.passes:
+            assert g.stages * 4 * g.words << g.lb \
+                <= tfp.SMEM_BLOCK - tfp.PK_STATIC_BYTES[planes] - g.lut_bytes
+        assert 4 << lc >= 32
+        assert stride == sum(int(r[3]) * int(r[5]) for r in desc)
+        assert int(desc[0][5]) == k + n + 1
 
 
 # ---------------------------------------------------------------------------
