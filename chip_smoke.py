@@ -13,7 +13,9 @@ at the first phase that does not hold:
 2. kernels against their plain PyTorch versions on the card, case by
    case, forward and backward: K1 (one state) and K2 (a batch of states
    with per-member angle rows, one shared row, or group rows each
-   serving a run of members), at the shapes listed in phase_kernels;
+   serving a run of members), at the shapes listed in phase_kernels
+   (each line naming the plan fp_plan gives it; the main path's K1 and
+   K2 backward run twice, bit-identical);
    then the packed-phase pair (csrc/packed_phase.cu) through K3's entry
    point at 18 qubits and K5's single and batched entry points at 19-24,
    the cases listed in phase_packed_kernels (hops inside and across the
@@ -73,7 +75,8 @@ at the first phase that does not hold:
    (``backend='product'``) or the adjoint gradient, with the limits
    named below;
 4. times with CUDA events after warm-up: each kernel at the main path's
-   shapes beside its plain version and its bound, and K2's forward at
+   shapes beside its plain version and its bound (K1/K2 also beside the
+   one-SM floor of a member's chain), and K2's forward at
    the MC epoch's branch leg (3072 members, 64 rows); the 12-qubit grad
    step, the 16-qubit 1000-step grad step, the 64-seed adjoint epoch,
    the MC gradient, the 64-seed MC epoch and the FD gradient, each
@@ -188,10 +191,10 @@ def _rot_pairs(kinds, d):
     return sum(d // 4 if k == "hop" else d // 2 for k in kinds)
 
 
-def chain_bound(d, n_steps, kinds, backward, members=1, rows=1):
-    """(bound_ms, bound_by) for one K1 (members = rows = 1) or K2 call of
-    ``members`` states reading ``rows`` angle rows: every input read once,
-    every output written once (gradients in the rows' shape); the fp32
+def chain_work(d, n_steps, kinds, backward, members=1, rows=1):
+    """(bytes, fp32 operations) of one K1 (members = rows = 1) or K2 call
+    of ``members`` states reading ``rows`` angle rows: every input read
+    once, every output written once (gradients in the rows' shape); the
     operations the function needs (sin and cos one each), the per-member
     state updates once per member and the angle work once per row. Per
     amplitude pair a rotation takes 12 (two complex outputs of c x + s y);
@@ -210,9 +213,40 @@ def chain_bound(d, n_steps, kinds, backward, members=1, rows=1):
             + 16 * n_ops
         ops = members * ((T + 1) * d * 17 + T * 32 * pairs) \
             + rows * ((T + 1) * d * 2 + T * 2 * n_ops)
+    return nbytes, ops
+
+
+def chain_bound(d, n_steps, kinds, backward, members=1, rows=1):
+    """(bound_ms, bound_by) of a K1 or K2 call (:func:`chain_work`): the
+    larger of its bytes over HBM and its operations over the fp32 rate."""
+    nbytes, ops = chain_work(d, n_steps, kinds, backward, members, rows)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+H100_SMS = 132
+
+
+def one_sm_floor(d, n_steps, kinds, backward):
+    """The least time of one member's chain on one SM: its operations
+    (:func:`chain_work`, one member, one row) at 1/132 of the card's fp32
+    rate, the floor of a chain that one SM carries."""
+    ops = chain_work(d, n_steps, kinds, backward)[1]
+    return ops / (FP32_OPS_PER_S / H100_SMS) * 1e3
+
+
+def fp_plan_text(n, plan, members, groups, backward):
+    """K1/K2's launch plan for a call, as chip_smoke's lines name it."""
+    import torch
+    from diffquantum_tpu_torch.ops import fused_product as tfp
+    g = tfp.fp_plan(n, tuple(map(tuple, plan.tolist())), members, groups,
+                    tfp._sm_count(torch.device(DEVICE)), backward)
+    return (f"{'bwd' if backward else 'fwd'} {g.mode} r={g.rbits} "
+            f"{g.threads}t x {g.blocks} blocks, {g.launches} launch(es) of "
+            f"{g.chunk} members, {len(g.rounds)} rounds, "
+            f"{g.exchanges} exchanges a step, bufs {g.bufs}, "
+            f"{g.per_sm} a SM")
 
 
 # --------------------------------------------------------------------------
@@ -304,7 +338,14 @@ def phase_kernels():
     from diffquantum_tpu_torch.ops.cpx import CP
 
     errs = {}
+    # the main path's shape first; then both sides of one block a member
+    # (13q forward and 12q backward in a block, 14q past it), a grid of
+    # blocks (15-17q) and the long chain
     k1_cases = [("12q ring MaxCut, T=30", 12, 30, "maxcut", TOL),
+                ("10q ring MaxCut, T=30", 10, 30, "maxcut", TOL),
+                ("13q ring MaxCut, T=30", 13, 30, "maxcut", TOL),
+                ("14q ring MaxCut, T=30", 14, 30, "maxcut", TOL),
+                ("15q ring MaxCut, T=30", 15, 30, "maxcut", TOL),
                 ("16q ring MaxCut, T=1000", 16, 1000, "maxcut", TOL_LONG),
                 ("17q ring MaxCut, T=30", 17, 30, "maxcut", TOL),
                 ("12q mixed X/Y/hop palindromic plan, T=30", 12, 30, "mixed",
@@ -329,8 +370,9 @@ def phase_kernels():
             lam = CP(2.0 * w * ref.re, 2.0 * w * ref.im)
         else:
             lam = _random_cp(rng, (d,), 1.0)
+        plan = tfp._plan_ops(qubits, kinds, n)
         got = tfp._backward_cuda(out.re, out.im, lam.re, lam.im, th, tx,
-                                 tfp._plan_ops(qubits, kinds, n), n)
+                                 plan, n)
         torch.cuda.synchronize()
         gp, gth, gtx = tfp._adjoint_plain(ref, lam, th, tx, qubits, n, kinds)
         torch.cuda.synchronize()
@@ -340,7 +382,11 @@ def phase_kernels():
         log(f"kernel check K1 [{label}]: {len(kinds)} ops, forward max abs "
             f"err {fwd_err!r} (atol {tol['fwd']}); backward relative errors "
             f"{rels!r} (bound {tol['grad']}); first launch + sync "
-            f"{t_k * 1e3:.3f} ms")
+            f"{t_k * 1e3:.3f} ms; plan [{fp_plan_text(n, plan, 1, 1, False)}"
+            f"; {fp_plan_text(n, plan, 1, 1, True)}]")
+        if "k1" not in errs:  # the main path's backward, run again
+            _bit_identical(label, "K1", got, tfp._backward_cuda(
+                out.re, out.im, lam.re, lam.im, th, tx, plan, n))
         errs.setdefault("k1", (fwd_err, bwd_abs))
 
     # (label, qubits, steps, members B, angle rows G, chain): row g serves
@@ -352,9 +398,19 @@ def phase_kernels():
                  12, 30, 48, 1, "mixed"),
                 ("12q ring MaxCut, T=30, B=3072 on 64 group rows (the 64-seed"
                  " MC epoch's branch leg)", 12, 30, 3072, 64, "maxcut"),
-                ("16q ring MaxCut, T=30, B=8 (global-memory mode)", 16, 30, 8,
-                 8, "maxcut"),
+                ("12q ring MaxCut, T=30, B=3 (SMs left free)", 12, 30, 3, 3,
+                 "maxcut"),
+                ("12q ring MaxCut, T=30, B=133 (one member past the SMs)",
+                 12, 30, 133, 133, "maxcut"),
+                ("14q ring MaxCut, T=30, B=64 (a grid in two launches of 32 "
+                 "members: one launch's blocks would not all be resident)",
+                 14, 30, 64, 64, "maxcut"),
+                ("14q ring MaxCut, T=30, B=136 (past the SMs: a grid in five "
+                 "launches of 28 members)", 14, 30, 136, 136, "maxcut"),
+                ("16q ring MaxCut, T=30, B=8", 16, 30, 8, 8, "maxcut"),
                 ("17q ring MaxCut, T=30, B=4", 17, 30, 4, 4, "maxcut"),
+                ("17q ring MaxCut, T=30, B=8 (a grid in two launches of 4 "
+                 "members)", 17, 30, 8, 8, "maxcut"),
                 ("12q ring MaxCut, T=1, B=3", 12, 1, 3, 3, "maxcut")]
     for label, n, n_steps, b, rows, kind in k2_cases:
         d = 2**n
@@ -398,12 +454,30 @@ def phase_kernels():
         fwd_err, bwd_abs, rels = _check_case(
             label, "K2", TOL, (out.re.detach(), out.im.detach()), ref, got,
             (gp.re, gp.im, gth, gtx))
+        plan = tfp._plan_ops(qubits, kinds, n)
         log(f"kernel check K2 [{label}]: {len(kinds)} ops, forward max abs "
             f"err {fwd_err!r} (atol {TOL['fwd']}); backward relative errors "
             f"{rels!r} (bound {TOL['grad']}); first launch + sync "
-            f"{t_k * 1e3:.3f} ms")
+            f"{t_k * 1e3:.3f} ms; plan [{fp_plan_text(n, plan, b, rows, False)}"
+            f"; {fp_plan_text(n, plan, b, rows, True)}]")
+        if "k2" not in errs:  # the seeds' backward, run twice
+            o_re, o_im = out.re.detach(), out.im.detach()
+            _bit_identical(label, "K2", *(
+                tfp._backward_cuda(o_re, o_im, lam.re, lam.im, th, tx, plan,
+                                   n) for _ in range(2)))
         errs.setdefault("k2", (fwd_err, bwd_abs))
     return errs
+
+
+def _bit_identical(label, kernel, got, again):
+    """Fail unless two runs of a backward gave the same bits."""
+    import torch
+    torch.cuda.synchronize()
+    same = [bool(torch.equal(a, b)) for a, b in zip(got, again)]
+    log(f"kernel check {kernel} [{label}, backward run twice]: "
+        f"bit-identical {same}")
+    if not all(same):
+        fail(f"{label}: {kernel} backward differs between two runs")
 
 
 # --------------------------------------------------------------------------
@@ -1679,12 +1753,15 @@ def phase_times():
     }
     for name, (kernel, plain, members) in runs.items():
         ms, plain_ms = cuda_ms(kernel, 200), cuda_ms(plain, 5, 1)
-        bound = chain_bound(d, 30, kinds, name.endswith("backward"),
-                            members=members, rows=members)
+        backward = name.endswith("backward")
+        bound = chain_bound(d, 30, kinds, backward, members=members,
+                            rows=members)
+        floor = one_sm_floor(d, 30, kinds, backward)
         out[name] = (ms, plain_ms) + bound
         log(f"time: {name} {ms!r} ms/launch, plain version {plain_ms!r} ms, "
-            f"bound {bound[0]!r} ms ({bound[1]}) (12q, T=30, {len(kinds)} "
-            f"ops, B={members})")
+            f"bound {bound[0]!r} ms ({bound[1]}), one-SM floor {floor!r} ms "
+            f"a member's chain (12q, T=30, {len(kinds)} ops, B={members}; "
+            f"{fp_plan_text(n, plan, members, members, backward)})")
     # the 64-seed MC epoch's branch leg: 3072 members on 64 group rows
     psi_g = _random_cp(np.random.default_rng(3), (48 * b, d),
                        1.0 / np.sqrt(2 * d))
@@ -1695,7 +1772,7 @@ def phase_times():
     bound = chain_bound(d, 30, kinds, False, members=48 * b, rows=b)
     log(f"time: k2_forward {ms!r} ms/launch, plain version {plain_ms!r} ms, "
         f"bound {bound[0]!r} ms ({bound[1]}) (12q, T=30, B={48 * b} on {b} "
-        f"group rows)")
+        f"group rows; {fp_plan_text(n, plan, 48 * b, b, False)})")
 
     rng = np.random.default_rng(0)
     steps = {}
@@ -1712,9 +1789,15 @@ def phase_times():
         ms = cuda_ms(step, iters, warmup)
         host = (time.perf_counter() - t0) / (iters + warmup) * 1e3
         steps[(nq, n_steps)] = ms
+        kinds_q = ("x",) * nq
+        bound = sum(chain_bound(2**nq, n_steps, kinds_q, bw)[0]
+                    for bw in (False, True))
+        floor = sum(one_sm_floor(2**nq, n_steps, kinds_q, bw)
+                    for bw in (False, True))
         log(f"time: {nq}q {n_steps}-step adjoint grad step {ms!r} ms "
             f"(CUDA events over {iters} chained calls; host wall "
-            f"{host!r} ms/call incl. warm-up)")
+            f"{host!r} ms/call incl. warm-up); K1 forward + backward bound "
+            f"{bound!r} ms, one-SM floor {floor!r} ms")
     k1_share = (out["k1_forward"][0] + out["k1_backward"][0]) \
         / steps[(12, 30)]
     log(f"time: K1 forward+backward are {k1_share!r} of the 12q grad step")

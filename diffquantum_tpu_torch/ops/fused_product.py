@@ -9,7 +9,8 @@ kernels are ``_make_forward_kernel``/``_make_backward_kernel`` (K1) and
 ``_make_forward_kernel_b``/``_make_backward_kernel_b`` (K2), and
 ``fused_product_evolve_packed`` (K3, ``_make_forward_kernel_pk`` /
 ``_make_backward_kernel_pk``). The CUDA kernels of K1 and K2 live in
-``csrc/fused_product.cu``, where K1 is K2's block code at one member;
+``csrc/fused_product.cu`` (K1 is K2 at one member; launch geometry from
+:func:`fp_plan`);
 K3's in ``csrc/packed_phase.cu``, which also backs K5
 (:mod:`.fused_chunked`) and K6 (:mod:`.fused_mega_hop`). This module
 holds their wrappers, the op plan, the table helpers, and the plain
@@ -70,7 +71,6 @@ KIND_X, KIND_Y, KIND_HOP = 0, 1, 2
 _KIND_CODES = {"x": KIND_X, "y": KIND_Y, "hop": KIND_HOP}
 MAX_OPS = 128          # op-table rows the kernel holds in shared memory
 MIN_QUBITS, MAX_QUBITS = 10, 17   # the router's 'streamed' band
-_BWD_SMEM_MAX_QUBITS = 13  # above this the backward keeps y in scratch
 
 PLANE_BITS = 30        # sign bits per int32 plane
 MAX_PACKED_TERMS = 120  # 4 planes
@@ -573,6 +573,309 @@ def _adjoint_batched_plain(psi_T: CP, lam: CP, theta_half: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# K1 and K2 on the card: the launch plan (csrc/fused_product.cu checks it)
+# ---------------------------------------------------------------------------
+
+FP_RBITS = (4, 3)       # 2^r amplitudes of each plane a thread (fp_plan)
+FP_LANE_BITS = 5        # index bits 0..4 are a warp's lanes
+FP_LOC_LANE = 8         # an op's location: register rank 0..r-1 or 8 + lane
+# registers a thread and the largest block, by (backward, r): the kernels'
+# launch bounds (csrc/fused_product.cu: bound_threads, max_threads)
+FP_REGS = {(False, 3): 64, (False, 4): 80, (True, 3): 128, (True, 4): 128}
+FP_MAX_THREADS = {(False, 3): 1024, (False, 4): 512, (True, 3): 512,
+                  (True, 4): 512}
+FP_GRID_THREADS = 256   # mode 'grid', at FP_GRID_REGS registers a thread
+FP_GRID_REGS = 128
+FP_GRID_RBITS = 3
+FP_MAX_ROUNDS = 128
+FP_STATIC_BYTES = 6144  # the kernels' static tables (kStaticBytes)
+_FP_MODES = {"block": 0, "grid": 1}
+_SM_BLOCKS = 32         # resident blocks an SM (sm_90)
+
+
+@dataclasses.dataclass(frozen=True)
+class FpRound:
+    """One round of a step: op rows [begin, begin + count) whose bits all
+    sit in the lanes (index bits 0-4) and the ``reg`` bits (held in
+    registers); ``blk`` the bits that index a member's blocks."""
+    begin: int
+    count: int
+    reg: int
+    blk: int
+
+
+@dataclasses.dataclass(frozen=True)
+class FpPlan:
+    """K1/K2's launch geometry for n qubits: a member's state over
+    ``blocks`` blocks of ``threads`` threads, 2^``rbits`` amplitudes of
+    each plane (2 forward, 4 backward) a thread; ``mode`` 'block' (one
+    block a member, exchanges through its shared memory in ``bufs``
+    buffers) or 'grid' (a cooperative grid, exchanges through global
+    memory, ``chunk`` members a launch so that every block is resident),
+    an exchange moving ``xplanes`` planes a pass (the backward's four in
+    one pass or two); ``smem`` dynamic shared memory a block; ``per_sm``
+    blocks resident an SM; ``rounds`` a step's rounds in plan order (the
+    last one's layout is the phase stages'); ``ops`` the op rows (slot,
+    kind, location a, location b): a register rank, ``FP_LOC_LANE`` + a
+    lane bit, or -1."""
+    n: int
+    backward: bool
+    members: int
+    groups: int
+    mode: str
+    rbits: int
+    warp_bits: int
+    block_bits: int
+    threads: int
+    bufs: int
+    xplanes: int
+    smem: int
+    per_sm: int
+    chunk: int
+    rounds: tuple
+    ops: tuple
+
+    @property
+    def planes(self) -> int:
+        return 4 if self.backward else 2
+
+    @property
+    def blocks(self) -> int:
+        """Blocks a member."""
+        return 1 << self.block_bits
+
+    @property
+    def grid(self) -> int:
+        """Blocks a launch (the last launch's may be fewer)."""
+        return self.chunk * self.blocks
+
+    @property
+    def launches(self) -> int:
+        return -(-self.members // self.chunk)
+
+    @property
+    def warps(self) -> int:
+        """Warps a member (the d theta_x partials' width)."""
+        return self.blocks * self.threads // 32
+
+    @property
+    def exchanges(self) -> int:
+        """Layout changes a step (the first round's from the phase
+        layout, which is the last round's)."""
+        lay = [(r.reg, r.blk) for r in self.rounds]
+        return sum(lay[i] != lay[i - 1] for i in range(len(lay)))
+
+
+def _bits(mask: int) -> list:
+    return [1 << b for b in range(mask.bit_length()) if mask >> b & 1]
+
+
+def _popcount(mask: int) -> int:
+    return bin(mask).count("1")
+
+
+def _fp_runs(plan_ops, n: int, rbits: int) -> list:
+    """A step's ops in plan order cut into runs whose bits above the lanes
+    fit ``rbits`` register bits: [(begin, count, needed bits)]."""
+    high = ((1 << n) - 1) & ~((1 << FP_LANE_BITS) - 1)
+    runs, begin, cur = [], 0, 0
+    for o, row in enumerate(plan_ops):
+        need = (int(row[2]) | int(row[3])) & high
+        if _popcount(cur | need) > rbits:
+            runs.append((begin, o - begin, cur))
+            begin, cur = o, 0
+        cur |= need
+    runs.append((begin, len(plan_ops) - begin, cur))
+    return runs
+
+
+def _fp_fill(mask: int, high: int, rbits: int) -> int:
+    """``mask`` topped up to ``rbits`` bits of ``high``, the highest free
+    ones first."""
+    for b in _bits(high)[::-1]:
+        if _popcount(mask) >= rbits:
+            break
+        mask |= b
+    return mask
+
+
+def _fp_top(mask: int, c: int) -> int:
+    out = 0
+    for b in _bits(mask)[::-1][:c]:
+        out |= b
+    return out
+
+
+def _fp_blocks(regs: list, high: int, c: int) -> list:
+    """Each round's c block bits, outside its register bits: constant
+    where c bits are free of every round's, else over the fewest cyclic
+    arcs of rounds."""
+    m = len(regs)
+    if c == 0:
+        return [0] * m
+    free = high
+    for r in regs:
+        free &= ~r
+    if _popcount(free) >= c:
+        return [_fp_top(free, c)] * m
+    best = None
+    for start in range(m):
+        arcs, i = [], 0
+        while i < m:
+            j, used = i, 0
+            while j < m and _popcount(
+                    high & ~(used | regs[(start + j) % m])) >= c:
+                used |= regs[(start + j) % m]
+                j += 1
+            arcs.append((i, j, _fp_top(high & ~used, c)))
+            i = j
+        if best is None or len(arcs) < len(best[1]):
+            best = (start, arcs)
+    start, arcs = best
+    out = [0] * m
+    for i, j, blk in arcs:
+        for t in range(i, j):
+            out[(start + t) % m] = blk
+    return out
+
+
+def _fp_loc(bit: int, reg: int) -> int:
+    if bit < 1 << FP_LANE_BITS:
+        return FP_LOC_LANE + bit.bit_length() - 1
+    if not reg & bit:
+        raise ValueError("an op's bit is not local in its round")
+    return _popcount(reg & (bit - 1))
+
+
+@functools.lru_cache(maxsize=256)
+def fp_plan(n_qubits: int, plan_ops: tuple, members: int = 1,
+            groups: int = 1, sm_count: int = None,
+            backward: bool = False) -> FpPlan:
+    """K1/K2's launch plan (plain Python; csrc/fused_product.cu checks it
+    and chooses none) for the op rows ``plan_ops`` (:func:`_plan_ops`, as
+    a tuple) over ``members`` states reading ``groups`` angle rows, on a
+    card of ``sm_count`` SMs.
+
+    - A thread holds 2^r amplitudes of each plane in registers: r = 3
+      while the members leave SMs free (more warps hide a chain's
+      latency), r = 4 once they fill the card (fewer instructions an
+      amplitude). A member takes 2^(n-r) threads.
+    - One block a member ('block') while its launch bounds
+      (``FP_MAX_THREADS``, at ``FP_REGS`` registers) hold them and its
+      buffers fit shared memory: up to 13 qubits forward and 12 backward.
+      Past that (at r = 3) a cooperative grid of 256-thread blocks
+      ('grid'), over as few launches of equal member chunks as keep every
+      block of a launch resident.
+    - Rounds: the step's ops in plan order, cut where their bits above the
+      lanes pass r; each round's register bits are its ops' bits topped up
+      from the highest free ones; the last round (the phase layout) takes
+      the first round's bits where both fit, so that a step opens without
+      an exchange. Block bits avoid a round's register bits and change
+      across the fewest cyclic arcs of rounds.
+    - Exchange buffers: two (one barrier an exchange) where they fit,
+      else one; the backward's four planes in one pass or, where they do
+      not fit, two. Past ``sm_count`` members, the choice that keeps the
+      most blocks resident an SM."""
+    n = n_qubits
+    if not MIN_QUBITS <= n <= MAX_QUBITS:
+        raise ValueError(f"fp_plan runs {MIN_QUBITS}..{MAX_QUBITS} qubits, "
+                         f"got {n}")
+    if members < 1 or groups < 1 or members % groups:
+        raise ValueError(f"fp_plan: {groups} groups do not divide "
+                         f"{members} members")
+    if len(plan_ops) > MAX_OPS:
+        raise ValueError(f"op plan has {len(plan_ops)} ops; the kernel "
+                         f"holds {MAX_OPS}")
+    sms = sm_count or H100_SMS
+    # one block at 2^3 amplitudes a thread (more warps) while the members
+    # leave SMs free; 2^4 (fewer instructions an amplitude) first once
+    # they fill the card
+    for rb in FP_RBITS[1:] if members <= sms else FP_RBITS:
+        try:
+            return _fp_geometry(n, plan_ops, members, groups, sms, backward,
+                                "block", rb)
+        except ValueError:
+            pass
+    return _fp_geometry(n, plan_ops, members, groups, sms, backward, "grid",
+                        FP_GRID_RBITS)
+
+
+def _fp_geometry(n, plan_ops, members, groups, sms, backward, mode, rb):
+    """:func:`fp_plan` in ``mode`` at r = ``rb``; raises ValueError where
+    it does not fit."""
+    n_ops = len(plan_ops)
+    planes = 4 if backward else 2
+    need = 1 << (n - rb)            # threads a member
+    runs = _fp_runs(plan_ops, n, rb)
+    if len(runs) > FP_MAX_ROUNDS:
+        raise ValueError(f"{len(runs)} rounds a step; the kernels hold "
+                         f"{FP_MAX_ROUNDS}")
+
+    def smem_of(threads, bufs, xp=planes):
+        """The exchange buffer (``xp`` planes); a warp's (cos, sin) table,
+        staged angles and base index in each round; a thread's ring of
+        two phase rows and (backward) its held cotangents."""
+        exch = 0 if mode == "grid" else 4 * xp * (threads << rb) * bufs
+        return exch + threads // 32 * (n_ops * 12 + len(runs) * 4) \
+            + ((12 if backward else 8) * threads << rb)
+
+    def fits(threads, bufs, xp):
+        return smem_of(threads, bufs, xp) + FP_STATIC_BYTES <= SMEM_BLOCK
+
+    def per_sm(threads, bufs, xp):
+        regs = FP_GRID_REGS if mode == "grid" else FP_REGS[backward, rb]
+        return min(_SM_THREADS // threads, _SM_BLOCKS,
+                   _SM_REGS // (threads * regs),
+                   SMEM_SM // (smem_of(threads, bufs, xp)
+                               + FP_STATIC_BYTES + SMEM_RESERVED))
+
+    if mode == "block":
+        threads = need
+        if threads > FP_MAX_THREADS[backward, rb]:
+            raise ValueError(f"{n} qubits need {threads} threads a block")
+        # exchange buffers and planes a pass, fewest barriers an exchange
+        # first; past sm_count members, the most blocks resident an SM
+        shapes = [s_ for s_ in ((2, planes), (1, planes), (2, 2), (1, 2))
+                  if fits(threads, *s_)]
+        if not shapes:
+            raise ValueError(f"{n} qubits do not fit a block of {threads}")
+        if members > sms:
+            shapes.sort(key=lambda s_: -per_sm(threads, *s_))
+    elif mode == "grid" and rb == FP_GRID_RBITS:
+        threads, shapes = FP_GRID_THREADS, [(1, planes)]
+    else:
+        raise ValueError(f"fp_plan: no mode {mode!r} at r = {rb}")
+    bufs, xplanes = shapes[0]
+    resident = per_sm(threads, bufs, xplanes)
+    blocks = need // threads
+    fit = resident * sms // blocks   # members whose blocks are resident
+    if resident < 1 or fit < 1:
+        raise ValueError(f"{n} qubits do not fit the card in mode {mode!r}")
+    chunk = members if mode == "block" else \
+        -(-members // -(-members // fit))
+    c = blocks.bit_length() - 1
+
+    high = ((1 << n) - 1) & ~((1 << FP_LANE_BITS) - 1)
+    reg = [_fp_fill(need_, high, rb) for _, _, need_ in runs]
+    first, last = runs[0][2], runs[-1][2]
+    if len(runs) > 1 and _popcount(first | last) <= rb:
+        reg[0] = reg[-1] = _fp_fill(first | last, high, rb)
+    blk = _fp_blocks(reg, high, c)
+    rounds = tuple(FpRound(b, k, r, bk)
+                   for (b, k, _), r, bk in zip(runs, reg, blk))
+    ops = []
+    for rd in rounds:
+        for row in plan_ops[rd.begin:rd.begin + rd.count]:
+            slot, kind, ma, mb = (int(v) for v in row[:4])
+            ops.append((slot, kind, _fp_loc(ma, rd.reg),
+                        _fp_loc(mb, rd.reg) if kind == KIND_HOP else -1))
+    return FpPlan(n, backward, members, groups, mode, rb,
+                  n - FP_LANE_BITS - rb - c, c, threads, bufs, xplanes,
+                  smem_of(threads, bufs, xplanes), resident, chunk, rounds,
+                  tuple(ops))
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernels
 # ---------------------------------------------------------------------------
 
@@ -580,9 +883,9 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_product")
     if not getattr(lib, "_dq_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dq_forward.argtypes = [p] * 7 + [i] * 6 + [p]
+        lib.dq_forward.argtypes = [p] * 10
         lib.dq_forward.restype = i
-        lib.dq_backward.argtypes = [p] * 13 + [i] * 6 + [p]
+        lib.dq_backward.argtypes = [p] * 15
         lib.dq_backward.restype = i
         lib.dq_error_string.argtypes = [i]
         lib.dq_error_string.restype = ctypes.c_char_p
@@ -622,21 +925,52 @@ def _count(batched: bool, backward: bool):
         FWD_LAUNCHES += 1
 
 
+_FP_LAUNCHES: dict = {}
+
+
+def _fp_launch(plan, n_qubits, th, tx, members, backward, device):
+    """A call's launch record, cached by its plan, shapes and device: (the
+    plan, its op rows on the device, the host table and its address). The
+    host table is what ``dq_forward`` / ``dq_backward`` check and launch
+    from: the header (qubits, steps, ops, rounds, members, angle groups,
+    op-angle groups, r, mode, threads, blocks a member, buffers, planes a
+    pass, shared memory, members a launch), then the op rows and the
+    rounds, four ints each."""
+    key = (plan.tobytes(), n_qubits, th.shape[0], th.shape[1], tx.shape[1],
+           members, backward, device)
+    rec = _FP_LAUNCHES.get(key)
+    if rec is None:
+        geo = fp_plan(n_qubits, tuple(map(tuple, plan.tolist())), members,
+                      th.shape[1], _sm_count(device), backward)
+        head = (n_qubits, th.shape[0], len(geo.ops), len(geo.rounds),
+                members, th.shape[1], tx.shape[1], geo.rbits,
+                _FP_MODES[geo.mode], geo.threads, geo.blocks, geo.bufs,
+                geo.xplanes, geo.smem, geo.chunk)
+        host = np.asarray(head + sum(geo.ops, ()) + sum(
+            ((r.begin, r.count, r.reg, r.blk) for r in geo.rounds), ()),
+            dtype=np.int32)
+        rec = _FP_LAUNCHES[key] = (geo, _plan_tensor(geo.ops, device), host,
+                                   host.ctypes.data)
+    return rec
+
+
 def _forward_cuda(psi_re, psi_im, theta_half, theta_x, plan, n_qubits):
     """The forward launch: K1 for a state [d], K2 for a batch [B, d]."""
     batched = psi_re.ndim == 2
     b = _members(psi_re)
     th, tx = _kernel_rows(theta_half), _kernel_rows(theta_x)
-    ops = _plan_tensor(tuple(map(tuple, plan.tolist())), psi_re.device)
+    dev = psi_re.device
+    geo, ops, _, host = _fp_launch(plan, n_qubits, th, tx, b, False, dev)
     psi_re, psi_im = psi_re.contiguous(), psi_im.contiguous()
     out_re, out_im = torch.empty_like(psi_re), torch.empty_like(psi_im)
+    xbuf = torch.empty((geo.chunk, 2, 2, 1 << n_qubits), dtype=torch.float32,
+                       device=dev) if geo.mode == "grid" else None
     lib = _lib()
-    with torch.cuda.device(psi_re.device):
-        stream = torch.cuda.current_stream(psi_re.device).cuda_stream
+    with torch.cuda.device(dev):
         code = lib.dq_forward(
-            _ptr(th), _ptr(tx), _ptr(psi_re), _ptr(psi_im), _ptr(ops),
-            _ptr(out_re), _ptr(out_im), n_qubits, th.shape[0], len(plan), b,
-            th.shape[1], tx.shape[1], stream)
+            _ptr(th), _ptr(tx), _ptr(psi_re), _ptr(psi_im), _ptr(ops), host,
+            _ptr(out_re), _ptr(out_im), _ptr(xbuf),
+            torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, code, "K2 forward" if batched else "K1 forward")
     _count(batched, backward=False)
     return out_re, out_im
@@ -651,21 +985,22 @@ def _backward_cuda(out_re, out_im, lam_re, lam_im, theta_half, theta_x,
     b = _members(out_re)
     th, tx = _kernel_rows(theta_half), _kernel_rows(theta_x)
     n_steps, d = th.shape[0], out_re.shape[-1]
-    ops = _plan_tensor(tuple(map(tuple, plan.tolist())), out_re.device)
-    f32 = dict(dtype=torch.float32, device=out_re.device)
+    dev = out_re.device
+    geo, ops, _, host = _fp_launch(plan, n_qubits, th, tx, b, True, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
     gth = torch.empty((n_steps, b, d), **f32)
     gtx = torch.empty((n_steps, b, tx.shape[2]), **f32)
     gp_re, gp_im = torch.empty_like(out_re), torch.empty_like(out_im)
-    scratch = (torch.empty_like(out_re), torch.empty_like(out_im)) \
-        if n_qubits > _BWD_SMEM_MAX_QUBITS else (None, None)
+    part = torch.empty((b * n_steps * len(plan) * geo.warps,), **f32)
+    xbuf = torch.empty((geo.chunk, 2, 4, d), **f32) \
+        if geo.mode == "grid" else None
     lib = _lib()
-    with torch.cuda.device(out_re.device):
-        stream = torch.cuda.current_stream(out_re.device).cuda_stream
+    with torch.cuda.device(dev):
         code = lib.dq_backward(
             _ptr(th), _ptr(tx), _ptr(out_re), _ptr(out_im), _ptr(lam_re),
-            _ptr(lam_im), _ptr(ops), _ptr(gth), _ptr(gtx), _ptr(gp_re),
-            _ptr(gp_im), _ptr(scratch[0]), _ptr(scratch[1]), n_qubits,
-            n_steps, len(plan), b, th.shape[1], tx.shape[1], stream)
+            _ptr(lam_im), _ptr(ops), host, _ptr(gth), _ptr(gtx),
+            _ptr(gp_re), _ptr(gp_im), _ptr(part), _ptr(xbuf),
+            torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, code, "K2 backward" if batched else "K1 backward")
     _count(batched, backward=True)
     if not batched:
