@@ -71,6 +71,24 @@ at the first phase that does not hold:
       data mesh of one against ``mesh=None``; the dense 'apply' routes:
       the 8-qubit dense seed population on K7, an 11-qubit dense grad
       step and a float64 10-qubit step on the recurrence;
+   i. Pauli-string objectives (phase_strings): the 20-qubit TFIM (39
+      strings) on K5, its expectation against a diagonal + 1q oracle,
+      ``energy_and_grad`` and 20 epochs of ``train_energy`` toward the
+      free-fermion energy, sampled strings within 5 standard errors and
+      ``sharded_strings_expectation`` on a mesh of one; the 20-qubit
+      Heisenberg chain's grad step and 3 epochs (K5); the 24-qubit TFIM
+      grad step (K5); the 10-qubit TFIM (K1); the 8-qubit dense TFIM on
+      'apply' (K7) against 'expm';
+   j. the channel envelope (phase_channel): bench.py's channel12q (K1)
+      and channel18q (K3) grad steps against central differences and
+      the eager engine, and the 12-qubit channel MC gradient (K1, K2);
+   k. MC and FD at 18-24 qubits (phase_sampled_frontier): the 18q (K3)
+      and 20q (K5) ring MaxCut's MC gradient at a fixed split time, 32
+      stratified samples one after another (cosine with the adjoint)
+      and the FD gradient in chunks sized from the card's free memory
+      (against the adjoint); 3 MC epochs of ``train_energy`` at 20q;
+      one 24q MC sample, 96 branches in one batched K5 launch, against
+      the estimator by hand on the eager engine at 4 steps;
    each checked against the eager Strang engine on the card
    (``backend='product'``) or the adjoint gradient, with the limits
    named below;
@@ -89,7 +107,9 @@ at the first phase that does not hold:
    version and matrix_exp + product (and that route's VJP), then the 10q
    dense grad step, the CNOT epoch, the 4q demo MC epoch and the 8q dense
    seed epoch; K4 at 24 qubits T = 1 and the 24-qubit sharded grad step
-   beside the one on K5;
+   beside the one on K5; the 20q TFIM and Heisenberg grad steps,
+   channel12q and channel18q grad steps, one 20q MC sample and the 20q
+   FD gradient (phase_slice_times);
 5. a JSON line of per-kernel numbers, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -2735,6 +2755,508 @@ def phase_sharded_times():
     return out
 
 
+# --------------------------------------------------------------------------
+# Pauli-string objectives, the channel envelope, MC and FD at 18-24 qubits
+# --------------------------------------------------------------------------
+
+# Limits of the slice's paths, beside their first H100 readings (NVIDIA
+# H100 80GB HBM3, 700 W). The 20q string expectation against its
+# diagonal + 1q oracle on the same K5-evolved state, absolute: read
+# 1.8e-7 (limit 5.4x above). The 8q dense TFIM on K7 against 'expm':
+# value 1.5e-6, gradient 7.7e-6 of its max-norm (limits ~4x above). The
+# channel grad step's directional derivative against central
+# differences, relative to max(1, |fd|): 1.3e-4 at 12q, 2.1e-3 at 18q,
+# held to tpu_tests/test_tpu_kernels.py's 5e-3. The 12q channel MC
+# gradient against the eager engine, relative to its max-norm: 3.3e-6
+# (4.6x). 32 stratified MC samples one after another, cosine with the
+# adjoint: 0.9989 at 18q and 0.9977 at 20q (1 - cos 4.4x below the
+# limit's). A sampled estimate within 5 standard errors of the exact
+# value. The slice's other checks reuse the limits above (the eager
+# engine: FRONTIER_*, MC_EAGER_REL; FD: FD_ADJ_REL).
+STRINGS_ORACLE_ATOL = 1e-6
+STRINGS_DENSE_ATOL = 6e-6
+STRINGS_DENSE_GRAD_REL = 3e-5
+CHANNEL_FD_REL = 5e-3
+CHANNEL_MC_REL = 1.5e-5
+SAMPLED_COS_MIN = 0.99
+SAMPLED_SE = 5.0
+
+
+def _counted_path(total, label, want, fn):
+    """Run ``fn`` with the counters at 0, hold its launches to ``want``,
+    add them to ``total``; returns fn's result."""
+    zero_counts()
+    out = fn()
+    counts = read_counts()
+    expect_counts(label, counts, want)
+    _add(total, counts)
+    return out
+
+
+def _coeff(shape, seed, scale=0.4):
+    import torch
+    return torch.tensor(scale * np.random.default_rng(seed).standard_normal(
+        shape), dtype=torch.float32, device=DEVICE)
+
+
+def _model(kind, n, **kw):
+    """A TFIM or Heisenberg problem on the card, built once per run."""
+    from diffquantum_tpu_torch.models import heisenberg, tfim
+    key = (kind, n, tuple(sorted(kw.items())))
+    if key not in _PROBLEMS:
+        t0 = time.perf_counter()
+        _PROBLEMS[key] = tfim.build_tfim(n, device=DEVICE, **kw) \
+            if kind == "tfim" else heisenberg.build_heisenberg(
+                n, device=DEVICE, **kw)
+        p = _PROBLEMS[key]
+        log(f"host: {n}q {kind} ({p.envelope.n_controls} controls, "
+            f"{p.measurement.strings.n_terms} strings) built in "
+            f"{time.perf_counter() - t0:.3f} s")
+    return _PROBLEMS[key]
+
+
+def _strings_oracle(prob, psi):
+    """The TFIM cost by hand: the ZZ part from the diagonal, the X part
+    from 1q applications (tpu_tests/test_tpu_kernels.py:286-321)."""
+    import torch
+    from diffquantum_tpu_torch.dynamics.product import apply_1q_operator
+    from diffquantum_tpu_torch.ops import linalg
+    n = prob.n_qubits
+    zz = np.zeros(2**n)
+    for i in range(n - 1):
+        zz -= prob.J * linalg.zz_diagonal(n, i, i + 1)
+    p64 = psi.astype(torch.float64)
+    e = float(torch.sum((p64.re ** 2 + p64.im ** 2) * torch.tensor(
+        zz, dtype=torch.float64, device=DEVICE)))
+    xr = torch.tensor([[0.0, 1.0], [1.0, 0.0]], dtype=torch.float64,
+                      device=DEVICE)
+    xi = torch.zeros((2, 2), dtype=torch.float64, device=DEVICE)
+    for q in range(n):
+        xp = apply_1q_operator(p64, q, n, xr, xi)
+        e -= prob.h * float(torch.sum(p64.re * xp.re + p64.im * xp.im))
+    return e
+
+
+def phase_strings(total):
+    """Pauli-string objectives through the entry points: the 20q TFIM and
+    Heisenberg (K5), the 24q TFIM (K5), the 10q TFIM (K1), the 8q dense
+    TFIM ('apply', K7), sampled strings and the sharded expectation at
+    world size 1."""
+    import torch
+    from diffquantum_tpu_torch.dynamics.product import select_engine
+    from diffquantum_tpu_torch.dynamics.propagator import (evolve,
+                                                           reference_n_steps)
+    from diffquantum_tpu_torch.gradients.adjoint import energy_and_grad
+    from diffquantum_tpu_torch.parallel import make_mesh
+    from diffquantum_tpu_torch.parallel.sharded_state import \
+        sharded_strings_expectation
+    from diffquantum_tpu_torch.train.config import TrainConfig
+    from diffquantum_tpu_torch.train.energy import train_energy
+
+    prob = _model("tfim", 20, dense=False)
+    n_steps = reference_n_steps(10, 0.0, prob.T)
+    if select_engine(prob.ham) != "mega" or n_steps != 30:
+        fail(f"20q TFIM routes to {select_engine(prob.ham)!r} with "
+             f"{n_steps} steps, expected 'mega' with 30")
+    coeff = _coeff(prob.envelope.coeff_shape, 20)
+    with torch.no_grad():
+        psi = _counted_path(total, "evolve, 20q TFIM", {"k5_forward": 1},
+                            lambda: evolve(prob.ham, prob.envelope, coeff,
+                                           prob.psi0, 0.0, prob.T,
+                                           horizon=prob.T, n_steps=n_steps))
+        e_str = float(prob.measurement.expectation(psi))
+    e_ora = _strings_oracle(prob, psi)
+    log(f"strings: 20q TFIM on a K5 state: {prob.measurement.strings.n_terms}"
+        f" strings {e_str!r}, diagonal + 1q oracle (f64) {e_ora!r}, diff "
+        f"{abs(e_str - e_ora)!r} (atol {STRINGS_ORACLE_ATOL})")
+    if not abs(e_str - e_ora) <= STRINGS_ORACLE_ATOL:
+        fail("20q string expectation disagrees with its oracle")
+    args = (prob.ham, prob.envelope, prob.measurement)
+    val, grad = _counted_path(
+        total, "energy_and_grad, 20q TFIM",
+        {"k5_forward": 1, "k5_backward": 1},
+        lambda: energy_and_grad(*args, coeff, prob.psi0, prob.T, n_steps))
+    _eager_check("strings: 20q TFIM grad step", prob, coeff, n_steps, val,
+                 grad)
+    res = _counted_path(
+        total, "train_energy adjoint, 20q TFIM, 20 epochs",
+        {"k5_forward": 21, "k5_backward": 20},
+        lambda: train_energy(*args, prob.psi0, prob.T,
+                             TrainConfig(n_epoch=20, lr=5e-2),
+                             lam_min=prob.exact_ground))
+    gaps = res.losses_energy
+    log(f"strings: 20q TFIM 20 epochs, gap to the free-fermion ground "
+        f"energy {prob.exact_ground!r}: {gaps[0]!r} -> {gaps[-1]!r}, wall "
+        f"{res.wall_s:.3f} s")
+    if not (np.all(np.isfinite(gaps)) and gaps[-1] < gaps[0]
+            and min(gaps) >= -1e-3):
+        fail("20q TFIM gap did not fall (or fell below the ground energy)")
+
+    # sampled strings on the trained state: 20 estimates of 1000 shots
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    from diffquantum_tpu_torch.measure import stochastic_measure_strings
+    with torch.no_grad():
+        psi_t = res.final_state
+        exact = float(prob.measurement.expectation(psi_t))
+        est = torch.stack([stochastic_measure_strings(
+            prob.measurement.strings, psi_t, gen, 1000)
+            for _ in range(20)]).double().cpu().numpy()
+    se = float(est.std() / np.sqrt(len(est)))
+    log(f"strings: sampled 20q TFIM, 20 x 1000 shots per QWC group: mean "
+        f"{float(est.mean())!r}, exact {exact!r}, standard error {se!r}")
+    if not abs(float(est.mean()) - exact) <= SAMPLED_SE * se:
+        fail("sampled strings estimate is off the exact value")
+
+    # world size 1: the sharded expectation is the unsharded one
+    mesh = make_mesh({"state": 1}, device=DEVICE)
+    with torch.no_grad():
+        sh = float(sharded_strings_expectation(psi_t, prob.measurement.strings,
+                                               mesh))
+    log(f"strings: sharded_strings_expectation on a mesh of one {sh!r}, "
+        f"unsharded {exact!r}, diff {abs(sh - exact)!r} (atol 1e-6)")
+    if not abs(sh - exact) <= 1e-6:
+        fail("the sharded expectation at world size 1 is not the unsharded")
+
+    hb = _model("heisenberg", 20, dense=False)
+    hn = reference_n_steps(10, 0.0, hb.T)
+    if select_engine(hb.ham) != "mega":
+        fail(f"20q Heisenberg routes to {select_engine(hb.ham)!r}")
+    hc = _coeff(hb.envelope.coeff_shape, 21, scale=0.3)
+    hargs = (hb.ham, hb.envelope, hb.measurement)
+    val, grad = _counted_path(
+        total, f"energy_and_grad, 20q Heisenberg ({hn} steps)",
+        {"k5_forward": 1, "k5_backward": 1},
+        lambda: energy_and_grad(*hargs, hc, hb.psi0, hb.T, hn))
+    _eager_check("strings: 20q Heisenberg grad step", hb, hc, hn, val, grad)
+    res = _counted_path(
+        total, "train_energy adjoint, 20q Heisenberg, 3 epochs",
+        {"k5_forward": 4, "k5_backward": 3},
+        lambda: train_energy(*hargs, hb.psi0, hb.T,
+                             TrainConfig(n_epoch=3, lr=5e-2),
+                             init_coeff=hc))
+    log(f"strings: 20q Heisenberg 3 epochs, loss {res.losses_raw[0]!r} -> "
+        f"{res.losses_raw[-1]!r}")
+    if not (np.all(np.isfinite(res.losses_raw))
+            and res.losses_raw[-1] < res.losses_raw[0]):
+        fail("20q Heisenberg loss did not fall")
+    del psi, psi_t, res
+    torch.cuda.empty_cache()
+
+    big = _model("tfim", 24, dense=False)
+    bn = reference_n_steps(10, 0.0, big.T)
+    bc = _coeff(big.envelope.coeff_shape, 24)
+    val, grad = _counted_path(
+        total, "energy_and_grad, 24q TFIM", {"k5_forward": 1,
+                                             "k5_backward": 1},
+        lambda: energy_and_grad(big.ham, big.envelope, big.measurement, bc,
+                                big.psi0, big.T, bn))
+    with torch.no_grad():
+        psi_e = evolve(big.ham, big.envelope, bc, big.psi0, 0.0, big.T,
+                       horizon=big.T, n_steps=bn, backend="product")
+        val_e = float(big.measurement.expectation(psi_e))
+    dv = abs(float(val) - val_e)
+    log(f"strings: 24q TFIM grad step value {float(val)!r} (eager engine, no "
+        f"grad, {val_e!r}, diff {dv!r}); peak card memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB so far")
+    if not (torch.isfinite(grad).all() and dv <= FRONTIER_VALUE_ATOL):
+        fail("24q TFIM grad step value disagrees with the eager engine")
+    del psi_e
+    torch.cuda.empty_cache()
+
+    small = _model("tfim", 10)
+    sn = reference_n_steps(10, 0.0, small.T)
+    sc = _coeff(small.envelope.coeff_shape, 10)
+    val, grad = _counted_path(
+        total, "energy_and_grad, 10q TFIM", {"k1_forward": 1,
+                                             "k1_backward": 1},
+        lambda: energy_and_grad(small.ham, small.envelope, small.measurement,
+                                sc, small.psi0, small.T, sn))
+    _eager_check("strings: 10q TFIM grad step", small, sc, sn, val, grad)
+
+    dense = _model("tfim", 8)
+    dc = _coeff(dense.envelope.coeff_shape, 8)
+    dargs = (dense.ham, dense.envelope, dense.measurement, dc, dense.psi0,
+             dense.T, sn)
+    val, grad = _counted_path(
+        total, "energy_and_grad, 8q dense TFIM, 'apply'",
+        {"k7_forward": sn, "k7_backward": sn},
+        lambda: energy_and_grad(*dargs, backend="apply"))
+    val_x, grad_x = energy_and_grad(*dargs, backend="expm")
+    dv, dg = abs(float(val) - float(val_x)), rel_err(grad, grad_x)
+    log(f"strings: 8q dense TFIM on K7 value {float(val)!r} ('expm' "
+        f"{float(val_x)!r}, diff {dv!r}); gradient relative diff {dg!r}")
+    if not (dv <= STRINGS_DENSE_ATOL and dg <= STRINGS_DENSE_GRAD_REL):
+        fail("8q dense TFIM on 'apply' disagrees with 'expm'")
+
+
+_CHANNEL = {}
+
+
+def channel_problem(n):
+    """bench.py's channel model (`bench.py:389-433`): the n-qubit ring,
+    ZZ and X controls, one carrier channel each (Legendre, n_basis 6),
+    the cut cost as a diagonal, T = 2."""
+    import torch
+    from diffquantum_tpu_torch.dynamics.hamiltonian import (
+        ControlledHamiltonian, TermStructure)
+    from diffquantum_tpu_torch.measure import Measurement
+    from diffquantum_tpu_torch.ops import linalg
+    from diffquantum_tpu_torch.ops.cpx import CP
+    from diffquantum_tpu_torch.pulses.envelope import ChannelEnvelope
+    if n not in _CHANNEL:
+        d = 2**n
+        edges = [(i, (i + 1) % n) for i in range(n)]
+        structure, nested = [], []
+        cost = np.zeros(d)
+        for idx, (i, j) in enumerate(edges):
+            diag = linalg.zz_diagonal(n, i, j)
+            cost += -0.5 * (1.0 - diag)
+            structure.append(TermStructure(kind="diag", diag=diag))
+            nested.append([[0.0, np.pi, 0.7 * idx, idx]])
+        for q in range(n):
+            structure.append(TermStructure(kind="1q", qubit=q,
+                                           local=linalg.X))
+            nested.append([[0.0, np.pi, 3.0 + 0.5 * q, len(edges) + q]])
+        ham = ControlledHamiltonian.create_structured(
+            d, tuple(structure),
+            h0_structure=TermStructure(kind="diag", diag=np.zeros(d)))
+        env = ChannelEnvelope.from_rows(nested, n_basis=6, func_type=0)
+        psi0 = CP(torch.full((d,), d ** -0.5, device=DEVICE),
+                  torch.zeros(d, device=DEVICE))
+        meas = Measurement.create_diagonal(cost, device=DEVICE)
+        _CHANNEL[n] = dataclasses.make_dataclass(
+            "ChannelProblem", ["ham", "envelope", "measurement", "psi0",
+                               "T", "n_qubits"])(ham, env, meas, psi0, 2.0, n)
+    return _CHANNEL[n]
+
+
+def phase_channel(total):
+    """The channel model at 12q (K1) and 18q (K3): the grad step against
+    central differences and the eager engine; the 12q MC gradient at a
+    fixed split time against the eager engine."""
+    import torch
+    from diffquantum_tpu_torch.dynamics.product import select_engine
+    from diffquantum_tpu_torch.dynamics.propagator import evolve
+    from diffquantum_tpu_torch.gradients.adjoint import energy_and_grad
+    from diffquantum_tpu_torch.gradients.mc import mc_energy_grad
+    from diffquantum_tpu_torch.measure import diag_expectation
+
+    n_steps = 30
+    for n, engine, kernel in ((12, "streamed", "k1"), (18, "packed", "k3")):
+        p = channel_problem(n)
+        if select_engine(p.ham) != engine:
+            fail(f"{n}q channel model routes to {select_engine(p.ham)!r}")
+        vv = _coeff(p.envelope.coeff_shape, 100 + n, scale=0.7)
+        args = (p.ham, p.envelope, p.measurement)
+        val, grad = _counted_path(
+            total, f"energy_and_grad, channel{n}q",
+            {f"{kernel}_forward": 1, f"{kernel}_backward": 1},
+            lambda: energy_and_grad(*args, vv, p.psi0, p.T, n_steps))
+        direction = _coeff(vv.shape, 52 + n, scale=1.0)
+        eps = 1e-3
+
+        def loss(c):
+            with torch.no_grad():
+                psi = evolve(p.ham, p.envelope, c, p.psi0, 0.0, p.T,
+                             horizon=p.T, n_steps=n_steps)
+                return float(diag_expectation(p.measurement.diag, psi))
+        fd = (loss(vv + eps * direction) - loss(vv - eps * direction)) \
+            / (2 * eps)
+        an = float((grad * direction).sum())
+        drel = abs(fd - an) / max(1.0, abs(fd))
+        log(f"channel: {n}q grad step directional derivative {an!r}, "
+            f"central differences {fd!r}, relative diff {drel!r} (bound "
+            f"{CHANNEL_FD_REL})")
+        if not (torch.isfinite(grad).all() and drel <= CHANNEL_FD_REL):
+            fail(f"{n}q channel gradient disagrees with central differences")
+        _eager_check(f"channel: {n}q grad step", p, vv, n_steps, val, grad)
+
+    p = channel_problem(12)
+    vv = _coeff(p.envelope.coeff_shape, 112, scale=0.7)
+    s = torch.tensor(0.7, dtype=torch.float64, device=DEVICE)
+    margs = (p.ham, p.envelope, p.measurement, vv, p.psi0, p.T, None,
+             n_steps)
+    g = _counted_path(total, "mc_energy_grad, channel12q, s=0.7",
+                      {"k1_forward": 1, "k2_forward": 1},
+                      lambda: mc_energy_grad(*margs, s=s))
+    g_e = mc_energy_grad(*margs, s=s, backend="product")
+    dg = rel_err(g, g_e)
+    log(f"channel: 12q MC gradient at s=0.7 {tuple(g.shape)} vs the eager "
+        f"engine: relative diff {dg!r} (bound {CHANNEL_MC_REL})")
+    if not (torch.isfinite(g).all() and dg <= CHANNEL_MC_REL):
+        fail("channel MC gradient disagrees with the eager engine")
+
+
+def eager_mc_sample(prob, coeff, s, n_steps, r=0.5, chunk=16):
+    """One MC sample of a diagonal cost by hand on the eager engine, its
+    2 n_Hs branches evolved ``chunk`` at a time (at 24 qubits the eager
+    engine's temporaries for all 96 at once would not fit the card)."""
+    import torch
+    from diffquantum_tpu_torch.dynamics.product import apply_structured_terms
+    from diffquantum_tpu_torch.dynamics.propagator import evolve
+    from diffquantum_tpu_torch.gradients.mc import envelope_sensitivity
+    from diffquantum_tpu_torch.measure import diag_expectation
+    from diffquantum_tpu_torch.ops.cpx import CP
+    T = prob.T
+    kw = dict(horizon=T, n_steps=n_steps, backend="product")
+    with torch.no_grad():
+        phi = evolve(prob.ham, prob.envelope, coeff, prob.psi0, 0.0, s, **kw)
+        h_re, h_im = apply_structured_terms(prob.ham, phi)
+        sc = 1.0 / (1.0 + r * r) ** 0.5
+        br_re = torch.cat([phi.re - r * h_im, phi.re + r * h_im]) * sc
+        br_im = torch.cat([phi.im + r * h_re, phi.im - r * h_re]) * sc
+        del h_re, h_im
+        ps = []
+        for lo in range(0, br_re.shape[0], chunk):
+            kets = evolve(prob.ham, prob.envelope, coeff,
+                          CP(br_re[lo:lo + chunk], br_im[lo:lo + chunk]), s,
+                          T, **kw)
+            ps.append(diag_expectation(prob.measurement.diag, kets))
+            del kets
+        ps = torch.cat(ps)
+        n_hs = ps.shape[0] // 2
+        ps_k = (1.0 + r * r) / (2.0 * r) * (ps[n_hs:] - ps[:n_hs])
+        return ps_k[:, None] * envelope_sensitivity(prob.envelope, coeff, s,
+                                                    T)
+
+
+def phase_sampled_frontier(total):
+    """MC and FD at 18-24 qubits on the ring MaxCut (n_basis 6, 30
+    steps): samples one after another, FD in chunks sized from the
+    card's free memory."""
+    import torch
+    from diffquantum_tpu_torch.gradients.adjoint import energy_and_grad
+    from diffquantum_tpu_torch.gradients.fd import fd_chunk_size, \
+        fd_energy_grad
+    from diffquantum_tpu_torch.gradients.mc import (mc_energy_grad,
+                                                    mc_energy_grad_batch)
+    from diffquantum_tpu_torch.train.config import TrainConfig
+    from diffquantum_tpu_torch.train.energy import train_energy
+
+    n_steps = 30
+    n_samples = 32
+    for n in (18, 20):
+        k = "k3" if n == 18 else "k5"
+        prob = frontier_problem(n)
+        coeff = _coeff(prob.envelope.coeff_shape, n)
+        args = (prob.ham, prob.envelope, prob.measurement, coeff, prob.psi0,
+                prob.T)
+        s = torch.tensor(0.7, dtype=torch.float64, device=DEVICE)
+        one = {f"{k}_forward": 2} if n == 18 else \
+            {"k5_forward": 2, "k5_batched_forward": 1}
+        g = _counted_path(total, f"mc_energy_grad, {n}q, s=0.7", one,
+                          lambda: mc_energy_grad(*args, None, n_steps, s=s))
+        g_e = mc_energy_grad(*args, None, n_steps, s=s, backend="product")
+        dg = rel_err(g, g_e)
+        log(f"sampled: {n}q MC gradient at s=0.7 vs the eager engine: "
+            f"relative diff {dg!r} (bound {MC_EAGER_REL})")
+        if not (torch.isfinite(g).all() and dg <= MC_EAGER_REL):
+            fail(f"{n}q MC gradient disagrees with the eager engine")
+        gen = torch.Generator(device=DEVICE).manual_seed(n)
+        batch = {f"{k}_forward": 2 * n_samples} if n == 18 else \
+            {"k5_forward": 2 * n_samples, "k5_batched_forward": n_samples}
+        gb = _counted_path(
+            total, f"mc_energy_grad_batch, {n}q, {n_samples} stratified, "
+            f"one after another", batch,
+            lambda: mc_energy_grad_batch(*args, gen, n_steps, n_samples,
+                                         strategy="stratified"))
+        _, adj = energy_and_grad(*args, n_steps)
+        cos = float((gb * adj).sum() / (gb.norm() * adj.norm()))
+        log(f"sampled: {n}q {n_samples} stratified samples, cosine with the "
+            f"adjoint {cos!r} (limit {SAMPLED_COS_MIN})")
+        if not cos >= SAMPLED_COS_MIN:
+            fail(f"{n}q MC batch does not point along the adjoint gradient")
+        n_members = 2 * coeff.numel()
+        chunk = fd_chunk_size(prob.ham, n_members, DEVICE)
+        n_chunks = -(-n_members // chunk)
+        fdw = {f"{k}_forward": n_chunks} if n == 18 else \
+            {"k5_forward": n_chunks, "k5_batched_forward": n_chunks}
+        gf = _counted_path(total, f"fd_energy_grad, {n}q ({n_members} "
+                           f"members)", fdw,
+                           lambda: fd_energy_grad(*args, None, n_steps))
+        da = rel_err(gf, adj)
+        log(f"sampled: {n}q FD gradient, {n_members} members in {n_chunks} "
+            f"chunk(s) of <= {chunk}: relative diff to the adjoint {da!r} "
+            f"(bound {FD_ADJ_REL})")
+        if not (torch.isfinite(gf).all() and da <= FD_ADJ_REL):
+            fail(f"{n}q FD gradient disagrees with the adjoint")
+    res = _counted_path(
+        total, "train_energy mc, 20q, 3 epochs",
+        {"k5_forward": 10, "k5_batched_forward": 3},
+        lambda: train_energy(prob.ham, prob.envelope, prob.measurement,
+                             prob.psi0, prob.T,
+                             TrainConfig(n_epoch=3, grad_mode="mc",
+                                         n_step=n_steps, lr=5e-2)))
+    log(f"sampled: 20q train_energy 3 MC epochs, loss {res.losses_raw[0]!r}"
+        f" -> {res.losses_raw[-1]!r}")
+    if not np.all(np.isfinite(res.losses_raw)):
+        fail("20q MC training gave non-finite losses")
+    del res
+    torch.cuda.empty_cache()
+
+    # one MC sample at 24q: 96 branches in one batched K5 forward
+    prob = frontier_problem(24)
+    coeff = _coeff(prob.envelope.coeff_shape, 24)
+    args = (prob.ham, prob.envelope, prob.measurement, coeff, prob.psi0,
+            prob.T, None)
+    s = torch.tensor(0.9, dtype=torch.float64, device=DEVICE)
+    g = _counted_path(total, "mc_energy_grad, 24q, s=0.9, 30 steps",
+                      {"k5_forward": 2, "k5_batched_forward": 1},
+                      lambda: mc_energy_grad(*args, n_steps, s=s))
+    torch.cuda.empty_cache()
+    g4 = mc_energy_grad(*args, 4, s=s)
+    torch.cuda.empty_cache()
+    g4_e = eager_mc_sample(prob, coeff, s, 4)
+    dg = rel_err(g4, g4_e)
+    log(f"sampled: 24q MC sample (96 branches) finite "
+        f"{bool(torch.isfinite(g).all())}; at 4 steps vs the eager engine "
+        f"relative diff {dg!r} (bound {MC_EAGER_REL}); peak card memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not (torch.isfinite(g).all() and dg <= MC_EAGER_REL):
+        fail("24q MC sample is not finite or disagrees with the eager engine")
+    del g4_e
+    torch.cuda.empty_cache()
+
+
+def phase_slice_times():
+    """time: lines of the slice's paths, with the card's name and power
+    limit."""
+    import torch
+    from diffquantum_tpu_torch.dynamics.propagator import reference_n_steps
+    from diffquantum_tpu_torch.gradients.adjoint import energy_and_grad
+    from diffquantum_tpu_torch.gradients.fd import fd_energy_grad
+    from diffquantum_tpu_torch.gradients.mc import mc_energy_grad
+    card = card_line()
+    rows = []
+    for kind in ("tfim", "heisenberg"):
+        p = _model(kind, 20, dense=False)
+        ns = reference_n_steps(10, 0.0, p.T)
+        c = _coeff(p.envelope.coeff_shape, 20)
+        rows.append((f"20q {kind} grad step ({ns} steps)", lambda p=p, c=c,
+                     ns=ns: energy_and_grad(p.ham, p.envelope,
+                                            p.measurement, c, p.psi0, p.T,
+                                            ns), 10))
+    for n in (12, 18):
+        p = channel_problem(n)
+        vv = _coeff(p.envelope.coeff_shape, 100 + n, scale=0.7)
+        rows.append((f"channel{n}q_grad_step (30 steps)",
+                     lambda p=p, vv=vv: energy_and_grad(
+                         p.ham, p.envelope, p.measurement, vv, p.psi0, p.T,
+                         30), 20 if n == 12 else 10))
+    p = frontier_problem(20)
+    c = _coeff(p.envelope.coeff_shape, 20)
+    args = (p.ham, p.envelope, p.measurement, c, p.psi0, p.T, None, 30)
+    s = torch.tensor(0.7, dtype=torch.float64, device=DEVICE)
+    rows.append(("20q MC sample (80 branches, 30 steps)",
+                 lambda: mc_energy_grad(*args, s=s), 5))
+    rows.append(("20q FD gradient (480 members, 30 steps)",
+                 lambda: fd_energy_grad(*args), 2))
+    for label, fn, iters in rows:
+        ms = cuda_ms(fn, iters, warmup=1)
+        log(f"time: {label} {ms:.3f} ms [{card}]")
+    torch.cuda.empty_cache()
+
+
 def main():
     try:
         import torch
@@ -2771,6 +3293,11 @@ def main():
     phase_hop_paths(launches)
     phase_dense_paths(launches)
     phase_sharded_paths(launches)
+    for phase in (phase_strings, phase_channel, phase_sampled_frontier):
+        t_phase = time.perf_counter()
+        phase(launches)
+        log(f"time: {phase.__name__} took "
+            f"{time.perf_counter() - t_phase:.1f} s")
     log(f"launches over all paths: {launches}")
     for name, n in launches.items():
         if n <= 0:
@@ -2780,6 +3307,7 @@ def main():
     times.update(phase_hop_times())
     times.update(phase_dense_times())
     times.update(phase_sharded_times())
+    phase_slice_times()
     import torch.distributed as dist
     if dist.is_initialized():  # the one-rank world make_mesh started
         dist.destroy_process_group()

@@ -21,7 +21,7 @@ from .ops.cpx import CP
 from .ops.expm import (cexpm_apply_taylor, cexpm_pade13, cexpm_taylor,
                        taylor_params)
 from .pulses.basis import basis_matrix
-from .pulses.envelope import SimpleEnvelope
+from .pulses.envelope import Channel, ChannelEnvelope, SimpleEnvelope
 from .dynamics.hamiltonian import (ControlledHamiltonian, TermStructure,
                                    classify_operator, detect_structure)
 from .dynamics.propagator import (calibrate_n_steps, evolve,
@@ -36,7 +36,7 @@ __all__ = [
     "cpx", "CP", "linalg",
     "cexpm_taylor", "cexpm_pade13", "cexpm_apply_taylor", "taylor_params",
     "basis_matrix",
-    "SimpleEnvelope",
+    "SimpleEnvelope", "Channel", "ChannelEnvelope",
     "ControlledHamiltonian", "TermStructure",
     "classify_operator", "detect_structure",
     "evolve", "trotter", "reference_n_steps",

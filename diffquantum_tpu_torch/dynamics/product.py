@@ -28,9 +28,10 @@ coefficients ``[G, n_controls, n_basis]`` and per-member time grids
 (``T0``/``T`` tensors of shape [G]), G dividing B: consecutive runs of
 B/G members share a coefficient set and grid. G = B is the JAX
 package's per-seed contract; G < B is how the MC estimator's branches
-share their pulses. The packed engines take one time grid; their
-per-member grids (the MC estimator's at 18+ qubits) raise (ROADMAP.md,
-Queue 1: MC and FD at 18-24 qubits).
+share their pulses. The packed engines take one time grid per launch:
+their drift's half-step phase is one [d] plane per chain, so per-member
+grids raise there, and the MC estimator runs its samples one after
+another from 18 qubits up (:func:`..gradients.mc._mc_sample_mode`).
 
 :func:`apply_structured_terms` gives H_k psi for every control term,
 matrix-free, for the MC estimator's perturbation gates.
@@ -430,10 +431,14 @@ def packed_chain_inputs(ham: ControlledHamiltonian, envelope,
     dt, dtg, (u_diag, u_oneq, u_hop), one_chain = _chain_controls(
         ham, envelope, coeff, T0, T, horizon, n_steps, t_sample)
     if isinstance(dt, torch.Tensor) and dt.ndim:
+        # h0th, the drift's half-step phase, is one [d] plane per chain:
+        # a per-member dt would need one per member (silently wrong on a
+        # Hamiltonian with drift)
         raise NotImplementedError(
-            "per-member time grids on the packed engines (the MC "
-            "estimator's at 18+ qubits) are not ported yet (ROADMAP.md, "
-            "Queue 1: MC and FD at 18-24 qubits)")
+            "per-member time grids on the packed engines (K3, K5, K6): "
+            "the drift's phase plane is shared by a launch; run the MC "
+            "samples one after another (gradients.mc sample_mode='map', "
+            "the default from 18 qubits)")
     theta_x, qubits, kinds = _rotation_inputs(ham, dtg, u_oneq, u_hop)
     signs, consts, scales, h0_vec = _packed_tables(ham, u_diag.device)
     half = 0.5 * dt

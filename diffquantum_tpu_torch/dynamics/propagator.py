@@ -69,12 +69,14 @@ def time_grid(T0, dt, n_steps: int, t_sample: str = "left",
 
 def _amplitude_bound(envelope) -> tuple[float, ...]:
     """Static per-control max |u_k|: a SimpleEnvelope is bounded by its
-    omegas."""
+    omegas, the channel model by the sum of |omega_c| over a control's
+    channels."""
     if hasattr(envelope, "omegas"):
         return tuple(abs(w) for w in envelope.omegas)
-    raise NotImplementedError(
-        "the dense backends' amplitude bound of a channel envelope is not "
-        "ported yet (ROADMAP.md, Queue 1: ChannelEnvelope)")
+    bounds = [0.0] * envelope.n_controls
+    for c in envelope.channels:
+        bounds[c.control] += abs(c.omega)
+    return tuple(bounds)
 
 
 def dense_backend(ham: ControlledHamiltonian, batched: bool,

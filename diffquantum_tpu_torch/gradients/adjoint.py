@@ -21,7 +21,8 @@ from ..ops.cpx import CP
 
 def _objective(m, psi: CP) -> torch.Tensor:
     """<psi|M|psi> (exact) for a dense CP operator, a real diagonal
-    tensor or a Measurement (its diagonal, target or matrix)."""
+    tensor or a Measurement (its diagonal, target, Pauli strings or
+    matrix)."""
     if isinstance(m, CP):
         return exact_expectation(m, psi)
     if isinstance(m, torch.Tensor):
@@ -31,11 +32,12 @@ def _objective(m, psi: CP) -> torch.Tensor:
             return diag_expectation(m.diag, psi)
         if m.target is not None:
             return target_overlap_prob(m.target, psi)
+        if m.strings is not None:
+            return m.strings.expectation(psi)
         return exact_expectation(m.matrix, psi)
-    raise NotImplementedError(
+    raise TypeError(
         f"energy_and_grad takes a Measurement, a dense CP operator or a "
-        f"diagonal tensor; {type(m).__name__} objectives are not ported "
-        "yet (ROADMAP.md, Queue 1: Pauli-string objectives)")
+        f"diagonal tensor, not {type(m).__name__}")
 
 
 def _value_and_grad(loss_of_psi, ham, envelope, coeff, psi0, T, n_steps,

@@ -22,21 +22,32 @@ with a per-sample dt on both legs, ``chain='exact'`` by default
 (``chain='reference'`` reproduces the reference's missing sigmoid factor
 for poly/Fourier), and no 1/T scaling unless ``t_jacobian``.
 
-Batching. The JAX package vmaps samples (or ``lax.map``s them at 18+
-qubits, its ``_mc_sample_mode`` switch); PyTorch has no counterpart and
-needs none. Here S samples, each with its own split time and, for seed
-populations, its own coefficients, are flattened onto the batch axis of
-the fused engine: leg 1 (0 → s) is one evolution of S members with
-per-member time grids, leg 2 (s → T) one evolution of S·2·n_Hs members
-whose phase and angle tables have one row per sample
+Batching. The JAX package vmaps samples, or ``lax.map``s them from 18
+qubits up (its ``_mc_sample_mode`` switch). Here, below 18 qubits
+(``sample_mode`` 'vmap'), S samples, each with its own split time and,
+for seed populations, its own coefficients, are flattened onto the batch
+axis of the fused engine: leg 1 (0 -> s) is one evolution of S members
+with per-member time grids, leg 2 (s -> T) one evolution of S·2·n_Hs
+members whose phase and angle tables have one row per sample
 (:func:`..ops.fused_product.fused_product_evolve_batched`'s group rows).
 On the card that is one K2 launch per leg; a single sample evolves its
-first leg on K1. The split times are drawn on the state's device from a
+first leg on K1. From 18 qubits up ('map') the samples run one after
+another, as the JAX package's 'map' mode does: each sample's leg 1 is
+one K3/K5 chain and its 2·n_Hs branches one batched K3/K5 launch that
+shares its split time (the packed engines take one time grid per
+launch). The split times are drawn on the state's device from a
 ``torch.Generator`` and never copied to the host. Random streams differ
 from ``jax.random``: the tests inject ``s``. On a dense Hamiltonian the
 legs run the dense backends: leg 1 of one state on 'expm' below
 d = 512, the branches on 'apply' (K7 on the card), per-sample grids as
 groups of members (:func:`..dynamics.propagator.evolve`).
+
+Envelope models. The simple model's sensitivity has a closed form
+(:func:`envelope_sensitivity`); the channel model
+(:class:`..pulses.envelope.ChannelEnvelope`) shares coefficient rows
+across channels, so its full Jacobian ``du_k(s)/dcoeff`` is taken by
+``torch.func.jacrev`` (vmapped over split times) and the estimator
+contracts its control axis with ``ps_k``.
 """
 from __future__ import annotations
 
@@ -44,6 +55,7 @@ from typing import Optional
 
 import torch
 
+from ..dynamics import product
 from ..dynamics.product import apply_structured_terms
 from ..dynamics.propagator import evolve
 from ..measure import Measurement, measure
@@ -52,19 +64,7 @@ from ..ops.cpx import CP
 from ..pulses.basis import basis_matrix
 
 STRATEGIES = ("iid", "antithetic", "stratified")
-# At 18 qubits and up the JAX package runs MC samples one after another
-# (its 'map' sample mode, `gradients/mc.py:221-232`) on the packed
-# engines; that path is not held on the card yet.
-SAMPLED_MAX_QUBITS = 17
-
-
-def check_sampled_size(ham, what: str):
-    """Raise for the MC and FD estimators past ``SAMPLED_MAX_QUBITS``."""
-    if ham.n_qubits > SAMPLED_MAX_QUBITS:
-        raise NotImplementedError(
-            f"{what} at {ham.n_qubits} qubits: the MC and FD gradient "
-            f"estimators at 18+ qubits are not ported yet (ROADMAP.md, "
-            f"Queue 1: MC and FD at 18-24 qubits)")
+SAMPLE_MODES = ("auto", "vmap", "map")
 
 
 def envelope_sensitivity(envelope, coeff: torch.Tensor, s, T,
@@ -95,13 +95,40 @@ def envelope_sensitivity(envelope, coeff: torch.Tensor, s, T,
     raise ValueError(f"unknown chain mode {chain!r}")
 
 
-def envelope_jacobian(envelope, coeff, s, T):
-    """du_k(s)/dcoeff for any envelope model (the channel model's shared
-    coefficient rows need it). Raises until ``ChannelEnvelope`` is
-    ported: the simple model takes :func:`envelope_sensitivity`."""
-    raise NotImplementedError(
-        "envelope_jacobian serves ChannelEnvelope, which is not ported yet "
-        "(ROADMAP.md, Queue 1: ChannelEnvelope)")
+def envelope_jacobian(envelope, coeff: torch.Tensor, s, T) -> torch.Tensor:
+    """du_k(s)/dcoeff for any envelope model, by ``torch.func.jacrev``
+    (the channel model shares coefficient rows across channels, so the
+    closed form above does not apply). ``s`` 0-dim gives
+    [n_controls, *coeff_shape]; ``s`` [S] gives [S, n_controls,
+    *coeff_shape] through ``torch.func.vmap``, with ``coeff`` shared or
+    one set per split time [S, *coeff_shape]."""
+    s = torch.as_tensor(s, dtype=torch.float64, device=coeff.device)
+
+    def u_at(c, si):
+        return envelope.amplitudes(c, si[None], T)[..., 0]
+
+    jac = torch.func.jacrev(u_at)
+    if s.ndim == 0:
+        return jac(coeff, s)
+    if s.ndim != 1:
+        raise ValueError(f"split times must be 0-dim or [S], got "
+                         f"{tuple(s.shape)}")
+    per_sample = coeff.ndim == len(envelope.coeff_shape) + 1
+    return torch.func.vmap(jac, in_dims=(0 if per_sample else None, 0))(
+        coeff, s)
+
+
+def _mc_sample_mode(ham, mode: str) -> str:
+    """'vmap' runs all samples on the batch axis of one evolution per
+    leg; 'map' runs them one after another. 'auto' picks 'map' from the
+    packed engines' size up (18 qubits), where one time grid serves a
+    launch, as the JAX package's router does."""
+    if mode not in SAMPLE_MODES:
+        raise ValueError(f"unknown sample_mode {mode!r}; expected one of "
+                         f"{SAMPLE_MODES}")
+    if mode != "auto":
+        return mode
+    return "map" if ham.n_qubits >= product._PACKED_MIN_QUBITS else "vmap"
 
 
 def split_times(strategy: str, u: torch.Tensor, T) -> torch.Tensor:
@@ -141,22 +168,32 @@ def mc_grads_per_sample(ham, envelope, measurement: Measurement, coeff,
                         coeff_sign: float = 1.0, chain: str = "exact",
                         sampling: bool = False, noisy: bool = False,
                         per_pauli: int = 100, t_jacobian: bool = False,
-                        precision: str = "full",
-                        t_sample: str = "left") -> torch.Tensor:
+                        precision: str = "full", t_sample: str = "left",
+                        sample_mode: str = "auto") -> torch.Tensor:
     """One MC sample per split time: ``s`` 0-dim (one sample, psi0 [d],
-    coeff [n_c, n_b]) or [S] (S samples; coeff [n_c, n_b] shared or one
-    set each, [S, n_c, n_b]; psi0 [d] shared or [S, d]). Returns grads
-    shaped like ``s.shape + (n_c, n_b)``. The seed-population trainer
-    flattens seeds × samples onto S. Arguments after ``n_steps`` as for
-    :func:`mc_energy_grad`."""
-    check_sampled_size(ham, "the MC gradient")
+    coeff of the envelope's ``coeff_shape``) or [S] (S samples; coeff
+    shared or one set each, [S, *coeff_shape]; psi0 [d] shared or [S,
+    d]). Returns grads shaped like ``s.shape + coeff_shape``. The
+    seed-population trainer flattens seeds × samples onto S.
+    ``sample_mode`` as :func:`_mc_sample_mode`; arguments after
+    ``n_steps`` as for :func:`mc_energy_grad`."""
     s = torch.as_tensor(s, dtype=torch.float64, device=psi0.device)
-    if not hasattr(envelope, "omegas"):
-        envelope_jacobian(envelope, coeff, s, T)
+    one = dict(generator=generator, backend=backend, r=r,
+               coeff_sign=coeff_sign, chain=chain, sampling=sampling,
+               noisy=noisy, per_pauli=per_pauli, t_jacobian=t_jacobian,
+               precision=precision, t_sample=t_sample)
+    if s.ndim == 1 and _mc_sample_mode(ham, sample_mode) == "map":
+        per_coeff = coeff.ndim == len(envelope.coeff_shape) + 1
+        return torch.stack([mc_grads_per_sample(
+            ham, envelope, measurement, coeff[i] if per_coeff else coeff,
+            psi0[i] if psi0.ndim == 2 else psi0, T, s[i], n_steps, **one)
+            for i in range(s.shape[0])])
     T = float(T)
     kw = dict(horizon=T, n_steps=n_steps, backend=backend,
               precision=precision, t_sample=t_sample)
-    dDdc = envelope_sensitivity(envelope, coeff, s, T, chain)
+    simple = hasattr(envelope, "omegas")
+    dDdc = envelope_sensitivity(envelope, coeff, s, T, chain) if simple \
+        else envelope_jacobian(envelope, coeff, s, T)
     batched = s.ndim == 1
     if batched and psi0.ndim == 1:
         n = s.shape[0]
@@ -186,7 +223,14 @@ def mc_grads_per_sample(ham, envelope, measurement: Measurement, coeff,
     if t_jacobian:
         factor = factor * T
     ps_k = factor * (ps[..., n_hs:] - ps[..., :n_hs])      # [..., n_hs]
-    return ps_k[..., None].to(dDdc.dtype) * dDdc
+    ps_k = ps_k.to(dDdc.dtype)
+    if simple:
+        return ps_k[..., None] * dDdc
+    # the channel model: contract the control axis of the full Jacobian
+    lead = dDdc.shape[:-len(envelope.coeff_shape) - 1]
+    flat = dDdc.reshape(lead + (n_hs, -1))
+    return torch.matmul(ps_k[..., None, :], flat).reshape(
+        lead + tuple(envelope.coeff_shape))
 
 
 def mc_energy_grad(ham, envelope, measurement: Measurement,
@@ -207,7 +251,8 @@ def mc_energy_grad(ham, envelope, measurement: Measurement,
     the fidelity-training mode (`sim_plain.py:461`); ``t_jacobian=True``
     multiplies by the U(0, T) sampling Jacobian T. ``s`` overrides the
     draw (a number or 0-dim tensor in [0, T]). On the card: K1 to s, then
-    one K2 launch over the 2 n_Hs branches."""
+    one K2 launch over the 2 n_Hs branches (from 18 qubits one K3/K5
+    chain, then one batched K3/K5 launch)."""
     if s is None:
         if generator is None:
             raise ValueError("mc_energy_grad needs a generator or s")
@@ -231,8 +276,10 @@ def mc_energy_grad_batch(ham, envelope, measurement, coeff, psi0, T,
     (pairs s, T - s) or 'stratified' (one uniform per sub-interval
     [i T/N, (i+1) T/N)); all three are unbiased (:func:`split_times`).
     ``s`` [n_samples] overrides the draw. ``kw`` as for
-    :func:`mc_energy_grad`. On the card: two K2 launches, n_samples
-    members to the split times, then n_samples·2·n_Hs branches."""
+    :func:`mc_energy_grad`, and ``sample_mode`` (:func:`_mc_sample_mode`).
+    On the card below 18 qubits: two K2 launches, n_samples members to
+    the split times, then n_samples·2·n_Hs branches; from 18 qubits the
+    samples one after another."""
     if s is None:
         s = draw_split_times(strategy, n_samples, T, generator)
     s = torch.as_tensor(s, dtype=torch.float64, device=psi0.device)

@@ -24,7 +24,10 @@ Here the seeds are the batch axis of the engines:
   estimator with every seed's samples flattened onto the batch axis
   (:func:`..gradients.mc.mc_grads_per_sample`): seeds × samples states
   to their split times, then seeds × samples × 2·n_Hs branches,
-  ``mc_strategy`` setting the split times when ``mc_samples > 1``.
+  ``mc_strategy`` setting the split times when ``mc_samples > 1``;
+  from 18 qubits up the (seed, sample) pairs run one after another, each
+  one K3/K5 chain to its split time and one batched launch over its
+  branches.
 
 With ``mesh=`` the seeds are split over its data axis: each rank trains
 its share as above, and the losses and coefficients are gathered at the
@@ -46,8 +49,7 @@ import torch.distributed as dist
 
 from ..dynamics.propagator import evolve, reference_n_steps
 from ..gradients.adjoint import _objective
-from ..gradients.mc import (check_sampled_size, draw_split_times,
-                            mc_grads_per_sample)
+from ..gradients.mc import draw_split_times, mc_grads_per_sample
 from ..measure import Measurement
 from ..ops.cpx import CP
 from ..train.config import TrainConfig
@@ -151,7 +153,7 @@ def train_energy_seeds(
     psi0's device (adjoint gradients by default, ``grad_mode='mc'`` for
     the hardware-realistic estimator), on a structured or a dense
     Hamiltonian, with the exact objective of ``measurement`` (its
-    diagonal, target or matrix). ``init_scale``: stddev of the
+    diagonal, target, Pauli strings or matrix). ``init_scale``: stddev of the
     coefficient init, drawn from a ``torch.Generator`` seeded with
     ``config.seed``; ``init_coeffs`` [n_seeds, n_controls, n_basis]
     replaces the draw (the JAX package draws from ``jax.random``, so
@@ -164,8 +166,6 @@ def train_energy_seeds(
     if config.grad_mode not in ("adjoint", "mc"):
         raise ValueError(f"train_energy_seeds takes grad_mode 'adjoint' or "
                          f"'mc', got {config.grad_mode!r}")
-    if config.grad_mode == "mc":
-        check_sampled_size(ham, "train_energy_seeds(grad_mode='mc')")
     T = float(T)
     n_steps = reference_n_steps(config.per_step, 0.0, T)
     dev, rdt = psi0.re.device, config.rdtype

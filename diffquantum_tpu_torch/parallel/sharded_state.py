@@ -1,6 +1,6 @@
 """State-vector sharding over a mesh of ranks — the port of
 :mod:`diffquantum_tpu.parallel.sharded_state` (``evolve_product_sharded``,
-``sharded_diag_expectation``), on ``torch.distributed`` where the JAX
+``sharded_diag_expectation``, ``sharded_strings_expectation``), on ``torch.distributed`` where the JAX
 package runs ``shard_map``.
 
 Layout: a mesh axis ``state`` of size 2^k shards the 2^n amplitudes
@@ -15,7 +15,9 @@ leading bits equal binary(m). Per Strang step:
   ``m ^ 2^(k-1-q)``: one block exchange (:func:`.comm.exchange`), then a
   local linear combination. X: psi' = cos(th) psi - i sin(th)
   psi_partner; Y: psi' = cos(th) psi + sign(bit) sin(th) psi_partner;
-- a diagonal observable is a local partial sum and one :func:`.comm.psum`.
+- a diagonal observable is a local partial sum and one :func:`.comm.psum`;
+  a Pauli-string sum adds one block exchange per distinct flip of the
+  distributed bits.
 
 Arrays over the amplitude axis are passed whole, as the JAX package
 passes global arrays, or, when the state axis has more than one rank,
@@ -47,6 +49,7 @@ from ..dynamics.product import (_amplitudes, _control_rows, _packed_tables,
                                 _pauli_kind, _symmetrize_rots, _tables,
                                 apply_hop_rot, drift_is_zero,
                                 split_structure_ext)
+from ..measure import _term_image, _term_value
 from ..ops import cpx
 from ..ops.cpx import CP
 from ..ops.fused_product import MAX_OPS, MAX_QUBITS, zero_drift
@@ -471,8 +474,37 @@ def sharded_strings_expectation(psi: CP, strings, mesh: Mesh,
                                 state_axis: str = "state",
                                 batch_axis: Optional[str] = None
                                 ) -> torch.Tensor:
-    """<psi|M|psi> for a Pauli-string sum with the amplitudes sharded.
-    Raises: it needs ``PauliStringSet``, which is not ported yet."""
-    raise NotImplementedError(
-        "sharded_strings_expectation needs PauliStringSet, which is not "
-        "ported yet (ROADMAP.md, Queue 1: Pauli-string objectives)")
+    """<psi|M|psi> for a Pauli-string sum
+    (:class:`...measure.PauliStringSet`) with the amplitudes sharded over
+    ``state_axis`` (its k ranks hold the top k qubits): each term's XOR
+    flip splits into its rank bits, one :func:`.comm.exchange` of the
+    whole local shard with the partner rank (once per distinct rank
+    flip), and its local bits, a flip inside the shard; the parity sign
+    splits into the partner rank's parity and the local one. One psum of
+    the total at the end, the same on every rank of the axis. ``psi`` is
+    this rank's block [..., d / 2^k]; with a batch axis, one value per
+    member of the block."""
+    del batch_axis  # the members are the block's leading axis
+    sax = mesh.axes[state_axis]
+    k = _state_axis_bits(mesh, state_axis)
+    n_local = strings.n_qubits - k
+    if psi.re.shape[-1] != 2**n_local:
+        raise ValueError(f"a block of {psi.re.shape[-1]} amplitudes is not "
+                         f"1/{sax.size} of a {strings.n_qubits}-qubit state")
+    low = 2**n_local - 1
+    me = sax.index
+    by_rank_flip = {}
+    for t, flip in enumerate(strings.flips):
+        by_rank_flip.setdefault(flip >> n_local, []).append(t)
+    vals = [None] * strings.n_terms
+    for flip_dist, terms in by_rank_flip.items():
+        q_re, q_im = exchange((psi.re, psi.im), flip_dist, sax)
+        for t in terms:
+            yz = strings.yz_masks[t]
+            par = bin((me ^ flip_dist) & (yz >> n_local)).count("1") % 2
+            img = _term_image(CP(q_re, q_im), strings.flips[t] & low,
+                              yz & low, n_local)
+            e = _term_value(psi, img, strings.n_ys[t])
+            vals[t] = -e if par else e
+    w = strings.weights.to(psi.re.dtype)
+    return psum(torch.tensordot(w, torch.stack(vals), dims=1), sax)

@@ -1,2 +1,2 @@
 from .basis import basis_matrix
-from .envelope import SimpleEnvelope
+from .envelope import Channel, ChannelEnvelope, SimpleEnvelope

@@ -44,8 +44,7 @@ import torch
 from ..dynamics.propagator import evolve, reference_n_steps
 from ..gradients.adjoint import energy_and_grad
 from ..gradients.fd import fd_energy_grad
-from ..gradients.mc import (check_sampled_size, mc_energy_grad,
-                            mc_energy_grad_batch)
+from ..gradients.mc import mc_energy_grad, mc_energy_grad_batch
 from ..measure import Measurement, measure
 from ..ops import cpx
 from ..utils.logger import Logger, NullLogger
@@ -93,8 +92,9 @@ def l2_grad(coeff: torch.Tensor, w_l2: float) -> torch.Tensor:
 
 def _lambda_min(measurement: Measurement) -> float:
     """The smallest eigenvalue of M, once on the host: the diagonal's
-    minimum, a dense operator's lowest eigenvalue, else 0 (a target:
-    the gap is then the raw loss)."""
+    minimum, a dense operator's lowest eigenvalue, else 0 (a target or
+    a Pauli-string sum, whose lowest eigenvalue the caller passes as
+    ``lam_min`` when it knows it: the gap is then the raw loss)."""
     if measurement.diag is not None:
         return float(measurement.diag.min())
     if measurement.matrix is not None:
@@ -120,8 +120,6 @@ def train_energy(
     mode = config.grad_mode
     if mode not in GRAD_MODES:
         raise ValueError(f"unknown grad_mode {mode!r}")
-    if mode != "adjoint":
-        check_sampled_size(ham, f"train_energy(grad_mode={mode!r})")
     if config.checkpoint_dir:
         raise NotImplementedError(
             "checkpoint/resume is not ported yet (ROADMAP.md, Queue 1: LR "

@@ -2,7 +2,7 @@
 
     python3 scripts/profile_torch_step.py [--steps 50]
         [--path grad|seeds|mc|mc_seeds|fd|grad18|grad20|grad24|grad20hop|
-                grad10dense|demo_mc|all]
+                grad10dense|demo_mc|tfim12|tfim20|mc20|all]
 
 Paths (the ring MaxCut, n_basis 6, 30 Strang steps; 12 qubits unless
 named):
@@ -20,7 +20,12 @@ named):
   grad10dense one ``energy_and_grad`` call on the 10-qubit dense ring
             MaxCut ('apply': 30 K7 forward and 30 backward launches);
   demo_mc   one MC epoch of ``train_energy`` on the 4-qubit demo ring,
-            dense, 100 steps per leg (K7 on the 16 branches).
+            dense, 100 steps per leg (K7 on the 16 branches);
+  tfim12    one ``energy_and_grad`` call on the 12-qubit TFIM (23 Pauli
+            strings measured matrix-free, n_basis 6, 30 steps): K1;
+  tfim20    the same at 20 qubits (39 strings): K5;
+  mc20      one ``mc_energy_grad`` sample of the 20-qubit ring at a fixed
+            split time (K5 to s, one batched K5 launch over 80 branches).
 A problem is built only for the paths asked for (the 24-qubit one takes
 the host tens of seconds).
 For each it runs the steps under ``torch.profiler`` and prints: the wall
@@ -43,7 +48,8 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PATHS = ("grad", "seeds", "mc", "mc_seeds", "fd", "grad18", "grad20",
-         "grad24", "grad20hop", "grad10dense", "demo_mc")
+         "grad24", "grad20hop", "grad10dense", "demo_mc", "tfim12", "tfim20",
+         "mc20")
 
 
 def make_run(name):
@@ -53,7 +59,7 @@ def make_run(name):
     from diffquantum_tpu_torch.gradients.adjoint import energy_and_grad
     from diffquantum_tpu_torch.gradients.fd import fd_energy_grad
     from diffquantum_tpu_torch.gradients.mc import mc_energy_grad
-    from diffquantum_tpu_torch.models import maxcut
+    from diffquantum_tpu_torch.models import maxcut, tfim
     from diffquantum_tpu_torch.parallel import train_energy_seeds
     from diffquantum_tpu_torch.train.config import TrainConfig
     from diffquantum_tpu_torch.train.energy import train_energy
@@ -75,16 +81,24 @@ def make_run(name):
         return lambda k: train_energy(
             demo.ham, demo.envelope, demo.measurement, demo.psi0, demo.T,
             TrainConfig(n_basis=6, n_epoch=k, lr=2e-2, grad_mode="mc"))
+    if name.startswith("tfim"):
+        prob = tfim.build_tfim(int(name[4:]), dense=False)
+        coeff = torch.tensor(0.4 * np.random.default_rng(0).standard_normal(
+            prob.envelope.coeff_shape), dtype=torch.float32, device="cuda")
+        return loop(lambda: energy_and_grad(
+            prob.ham, prob.envelope, prob.measurement, coeff, prob.psi0,
+            prob.T, 30))
     if name == "grad10dense":
         prob = maxcut.build_maxcut(10, maxcut.ring_graph(10), n_basis=6,
                                    dense=True)
     else:
-        n = int(name[4:]) if name.startswith("grad") and name != "grad" \
-            else 12
+        n = 20 if name == "mc20" else int(name[4:]) \
+            if name.startswith("grad") and name != "grad" else 12
         prob = maxcut.build_maxcut(n, maxcut.ring_graph(n), n_basis=6)
     coeff = torch.tensor(1e-3 * np.random.default_rng(0).standard_normal(
         prob.envelope.coeff_shape), dtype=torch.float32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
+    s_fixed = torch.tensor(0.7, dtype=torch.float64, device="cuda")
     common = (prob.ham, prob.envelope, prob.measurement)
 
     def seeds(**kw):
@@ -99,6 +113,8 @@ def make_run(name):
         "seeds": seeds(),
         "mc": loop(lambda: mc_energy_grad(*common, coeff, prob.psi0, prob.T,
                                           gen, 30)),
+        "mc20": loop(lambda: mc_energy_grad(*common, coeff, prob.psi0,
+                                            prob.T, None, 30, s=s_fixed)),
         "mc_seeds": seeds(grad_mode="mc", n_step=30),
         "fd": loop(lambda: fd_energy_grad(*common, coeff, prob.psi0, prob.T,
                                           None, 30)),

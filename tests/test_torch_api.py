@@ -22,15 +22,12 @@ import diffquantum_tpu_torch
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
-PAULI = "Pauli-string objectives"
-CHANNEL = "ChannelEnvelope"
 DYNAMICS = "The rest of the single-state dynamics"
 LINDBLAD = "dynamics/lindblad.py"
 SCHEDULES = "LR schedules and checkpoint/resume"
 
 # name -> the Queue 1 item that ports it
 STILL_TO_PORT = {
-    "diffquantum_tpu": {"Channel": CHANNEL, "ChannelEnvelope": CHANNEL},
     "diffquantum_tpu.dynamics": {
         n: LINDBLAD for n in (
             "CollapseSet", "StructuredNoise", "amplitude_damping",
@@ -41,14 +38,6 @@ STILL_TO_PORT = {
             "score_surrogate")},
     "diffquantum_tpu.dynamics.product": {
         "evolve_product_trajectory": DYNAMICS},
-    "diffquantum_tpu.measure": {"PauliStringSet": PAULI,
-                                "qwc_groups": PAULI,
-                                "stochastic_measure_strings": PAULI},
-    "diffquantum_tpu.models": {"tfim": PAULI, "heisenberg": PAULI},
-    "diffquantum_tpu.pulses": {"Channel": CHANNEL,
-                               "ChannelEnvelope": CHANNEL},
-    "diffquantum_tpu.pulses.envelope": {"Channel": CHANNEL,
-                                        "ChannelEnvelope": CHANNEL},
     "diffquantum_tpu.train.energy": {"serialization_to_optstate":
                                      SCHEDULES},
     "diffquantum_tpu.utils": {"checkpointing": SCHEDULES,

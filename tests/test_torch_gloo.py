@@ -168,6 +168,38 @@ def rank_cases(rank: int, world: int, tmp: str):
     dist.destroy_process_group()
 
 
+def strings_rank(rank: int, world: int, tmp: str):
+    """One rank of tests/test_torch_strings.py's sharded Pauli-string
+    case: this rank's block of ``tmp/psi.npy`` [3, d] (and of its first
+    state), the sharded expectation of ``tmp/terms.npy``, and the
+    gradient of the batch's summed value in the block, saved to
+    ``tmp/strings{rank}.pt``."""
+    from diffquantum_tpu_torch.measure import PauliStringSet
+    from diffquantum_tpu_torch.parallel.sharded_state import \
+        sharded_strings_expectation
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(tmp, "store"), world), rank=rank, world_size=world)
+    torch.set_num_threads(1)
+    mesh = make_mesh({"state": world}, device="cpu")
+    psi = np.load(os.path.join(tmp, "psi.npy"))
+    terms = [(str(lb), float(w)) for lb, w in
+             np.load(os.path.join(tmp, "terms.npy"), allow_pickle=True)]
+    strings = PauliStringSet.create(terms, dtype=torch.float64,
+                                    device="cpu")
+    blk = psi.shape[-1] // world
+    part = psi[:, rank * blk:(rank + 1) * blk]
+    re = torch.tensor(part.real, requires_grad=True)
+    im = torch.tensor(part.imag, requires_grad=True)
+    batch = sharded_strings_expectation(CP(re, im), strings, mesh)
+    g_re, g_im = torch.autograd.grad(batch.sum(), (re, im))
+    one = sharded_strings_expectation(CP(re[0].detach(), im[0].detach()),
+                                      strings, mesh)
+    torch.save({"batch": batch.detach().numpy(), "one": one.numpy(),
+                "grad_re": g_re.numpy(), "grad_im": g_im.numpy()},
+               os.path.join(tmp, f"strings{rank}.pt"))
+    dist.destroy_process_group()
+
+
 def run_ranks(world: int, tmp: str, seeds_init: np.ndarray):
     """Spawn ``world`` gloo ranks running :func:`rank_cases`; returns
     their results in rank order."""

@@ -1,10 +1,9 @@
 """Guards of the PyTorch port: it imports neither JAX nor the JAX package
 (the sharded engine and its collectives included), its entry points
 refuse to run on the CPU unless asked (make_mesh too), what is not
-ported raises NotImplementedError instead of falling back (Pauli-string
-objectives on the sharded engine, LR schedules, checkpoints,
-Pauli-string and channel objectives, the MC and FD estimators at 18+
-qubits), the JAX package's engine names are no backends, the dense
+ported raises NotImplementedError instead of falling back (LR
+schedules, checkpoints) and what is ported keeps its refusals, the MC
+and FD estimators run at 18 qubits, the JAX package's engine names are no backends, the dense
 'auto' rule and the CPU's route of 'apply', a mesh larger than the
 world raises, and chip_smoke.py fails without a card."""
 import ast
@@ -134,33 +133,55 @@ def test_router_raises_past_the_streamed_band(n):
                                   "batched_18q", "envelope_jacobian",
                                   "strings", "dense_seeds"])
 def test_unported_features_raise(what):
+    """What is not ported (LR schedules, checkpoints) raises
+    NotImplementedError naming its ROADMAP.md item. The features that are
+    ported keep the one refusal each has: the sharded string expectation
+    a state axis that is no power of two, the packed engines per-member
+    time grids (the MC estimator's 'vmap' mode at 18 qubits),
+    envelope_jacobian split times that are neither 0-dim nor [S], and
+    sampled measurement more than torch.multinomial's 2^24 categories."""
+    from diffquantum_tpu_torch.measure import draw_shots
+    from diffquantum_tpu_torch.parallel.comm import Axis
+    from diffquantum_tpu_torch.parallel.mesh import Mesh
     p = _small_problem()
     dense = tmaxcut.demo_problem(device="cpu")
     cfg = TrainConfig(n_epoch=1)
     run = lambda c: train_energy(p.ham, p.envelope, p.measurement,  # noqa
                                  p.psi0, p.T, c)
-    call = {
-        # the sharded engine's Pauli-string observable
-        "mesh": lambda: sharded_strings_expectation(p.psi0, None, None),
-        "cosine": lambda: run(cfg.replace(lr_schedule="cosine")),
-        "checkpoint": lambda: run(cfg.replace(checkpoint_dir="ckpt")),
-        # the MC estimator's batch at 18 qubits
-        "batched_18q": lambda: mc_energy_grad_batch(
+    roadmap = (NotImplementedError, "ROADMAP.md")
+    three = Mesh(("state",), {"state": 3},
+                 {"state": Axis("state", 3, 0, (0, 1, 2), None)},
+                 torch.device("cpu"))
+    call, (error, match) = {
+        "mesh": (lambda: sharded_strings_expectation(
+            p.psi0, Measurement.create_strings(
+                [("Z" * 4, 1.0)], device="cpu").strings, three),
+            (ValueError, "not a power of two")),
+        "cosine": (lambda: run(cfg.replace(lr_schedule="cosine")), roadmap),
+        "checkpoint": (lambda: run(cfg.replace(checkpoint_dir="ckpt")),
+                       roadmap),
+        # the MC estimator's batch at 18 qubits on the packed engine
+        "batched_18q": (lambda: mc_energy_grad_batch(
             _ham(18), SimpleEnvelope(basis="bspline", n_basis=4,
                                      omegas=(1.0, 1.0)),
-            None, torch.zeros((2, 4)), CP(torch.zeros(2**18),
-                                          torch.zeros(2**18)),
-            1.0, None, 2, 4, s=torch.full((4,), 0.5)),
-        "envelope_jacobian": lambda: envelope_jacobian(
-            p.envelope, torch.zeros(p.envelope.coeff_shape), 0.5, p.T),
-        "strings": lambda: Measurement.create_strings(
-            [("ZZ", 1.0)], device="cpu"),
+            Measurement.create_diagonal(np.zeros(2**18), device="cpu"),
+            torch.zeros((2, 4)), CP(torch.zeros(2**18), torch.zeros(2**18)),
+            1.0, None, 2, 4, s=torch.full((4,), 0.5),
+            backend="product_fused", sample_mode="vmap"),
+            (NotImplementedError, "per-member time grids")),
+        "envelope_jacobian": (lambda: envelope_jacobian(
+            p.envelope, torch.zeros(p.envelope.coeff_shape),
+            torch.full((2, 2), 0.5), p.T), (ValueError, "split times")),
+        "strings": (lambda: draw_shots(
+            torch.ones((1, 1)).expand(1, 2**24 + 1), 4,
+            torch.Generator()), (ValueError, "at most")),
         # dense seed populations run; their LR schedules do not yet
-        "dense_seeds": lambda: train_energy_seeds(
+        "dense_seeds": (lambda: train_energy_seeds(
             dense.ham, dense.envelope, dense.measurement, dense.psi0,
             dense.T, cfg.replace(lr_schedule="cosine"), n_seeds=2),
+            roadmap),
     }[what]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(error, match=match):
         call()
 
 
@@ -168,33 +189,43 @@ def test_unported_features_raise(what):
                                    "fd_energy_grad", "train_energy_mc",
                                    "train_energy_fd", "train_energy_seeds_mc"])
 def test_sampled_estimators_raise_at_18_qubits(entry):
-    """The MC and FD estimators stop at 17 qubits until their 18+ qubit
-    path (samples one after another, as the JAX package runs them) is
-    held on the card (ROADMAP.md, Queue 1: MC and FD at 18-24 qubits)."""
+    """At 18 qubits, where the estimators once stopped, each entry point
+    runs on the CPU (the eager engine) and gives finite values of the
+    expected shape: the MC samples one after another ('auto' picks
+    'map' there), FD in one batch (off the card the chunk is every
+    member)."""
+    from diffquantum_tpu_torch.gradients import mc as tmc
+    from diffquantum_tpu_torch.gradients.fd import fd_chunk_size
     ham = _ham(18)
+    assert tmc._mc_sample_mode(ham, "auto") == "map"
+    assert tmc._mc_sample_mode(_ham(17), "auto") == "vmap"
+    assert fd_chunk_size(ham, 16, "cpu") == 16
     env = SimpleEnvelope(basis="bspline", n_basis=4, omegas=(1.0, 1.0))
-    c = torch.zeros(env.coeff_shape)
-    psi0 = CP(torch.zeros(2**18), torch.zeros(2**18))
-    meas = Measurement.create_diagonal(np.zeros(4), device="cpu")
+    c = torch.full(env.coeff_shape, 0.3)
+    d = 2**18
+    psi0 = CP(torch.full((d,), d ** -0.5), torch.zeros(d))
+    meas = Measurement.create_diagonal(
+        linalg.zz_diagonal(18, 0, 1), device="cpu")
     run = lambda mode: train_energy(  # noqa: E731
-        ham, env, meas, psi0, 1.0, TrainConfig(n_epoch=1, grad_mode=mode))
+        ham, env, meas, psi0, 1.0,
+        TrainConfig(n_epoch=1, grad_mode=mode, per_step=2, n_step=2))
     call = {
         "mc_energy_grad": lambda: mc_energy_grad(
             ham, env, meas, c, psi0, 1.0, None, 2, s=0.5),
         "mc_energy_grad_batch": lambda: mc_energy_grad_batch(
-            ham, env, meas, c, psi0, 1.0, None, 2, 4,
-            s=torch.full((4,), 0.5)),
+            ham, env, meas, c, psi0, 1.0, None, 2, 3,
+            s=torch.tensor([0.2, 0.5, 0.9], dtype=torch.float64)),
         "fd_energy_grad": lambda: fd_energy_grad(ham, env, meas, c, psi0,
                                                  1.0, None, 2),
-        "train_energy_mc": lambda: run("mc"),
-        "train_energy_fd": lambda: run("fd"),
+        "train_energy_mc": lambda: run("mc").coeff,
+        "train_energy_fd": lambda: run("fd").coeff,
         "train_energy_seeds_mc": lambda: train_energy_seeds(
             ham, env, meas, psi0, 1.0,
-            TrainConfig(n_epoch=1, grad_mode="mc"), n_seeds=2),
+            TrainConfig(n_epoch=1, grad_mode="mc", per_step=2, n_step=2),
+            n_seeds=2).coeffs[1],
     }[entry]
-    with pytest.raises(NotImplementedError,
-                       match="Queue 1: MC and FD at 18-24 qubits"):
-        call()
+    out = call()
+    assert out.shape == env.coeff_shape and torch.isfinite(out).all()
 
 
 def test_dense_auto_rule_on_cpu():
