@@ -1,11 +1,9 @@
 """Training configuration — the port of
 :class:`diffquantum_tpu.train.config.TrainConfig`, same fields and
-defaults. What the port does not run yet raises in the trainer, not here:
-``lr_schedule`` other than 'constant' and ``checkpoint_dir`` (ROADMAP.md,
-Queue 1: LR schedules and checkpoint/resume). ``epoch_block`` and
-``precision='fast'`` are accepted and change nothing (PyTorch runs
-eagerly; the fused kernels have no matmul precision to pick).
-``mc_t_jacobian`` is read by no trainer, as in the JAX package."""
+defaults. ``epoch_block`` and ``precision='fast'`` are accepted and change
+nothing (PyTorch runs eagerly; the fused kernels have no matmul precision
+to pick). ``mc_t_jacobian`` is read by no trainer, as in the JAX
+package."""
 from __future__ import annotations
 
 import dataclasses

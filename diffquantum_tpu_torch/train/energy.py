@@ -28,13 +28,17 @@ Semantics kept from the JAX package:
 There is no analog of the JAX epoch-block ``lax.scan``: PyTorch runs
 eagerly. Random draws (split times, shots, noise) come from a
 ``torch.Generator`` on the state's device seeded with ``config.seed + 1``,
-not from the JAX key schedule. Not ported yet, and raising: LR schedules
-and checkpoint/resume (ROADMAP.md, Queue 1: LR schedules and
-checkpoint/resume).
+not from the JAX key schedule. The LR schedules are optax's
+(:func:`lr_schedule`), and ``checkpoint_dir`` / ``checkpoint_every``
+save and resume the run as the JAX trainer does
+(:mod:`..utils.checkpointing`; the generator's state takes the PRNG
+key's place).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+import os
 import time
 from typing import Callable, Optional
 
@@ -47,6 +51,7 @@ from ..gradients.fd import fd_energy_grad
 from ..gradients.mc import mc_energy_grad, mc_energy_grad_batch
 from ..measure import Measurement, measure
 from ..ops import cpx
+from ..utils.checkpointing import load_checkpoint, save_checkpoint
 from ..utils.logger import Logger, NullLogger
 from .config import TrainConfig
 
@@ -63,21 +68,79 @@ class TrainResult:
     grad_mode: str
 
 
+def _cosine_decay(init_value: float, decay_steps: int, alpha: float):
+    """optax.cosine_decay_schedule (exponent 1) as a function of the
+    update count."""
+    if not decay_steps > 0:
+        raise ValueError("the cosine schedule needs positive decay_steps, "
+                         f"got {decay_steps}")
+
+    def schedule(count: int) -> float:
+        count = min(float(count), float(decay_steps))
+        cosine_decay = 0.5 * (1 + math.cos(math.pi * count / decay_steps))
+        return init_value * ((1 - alpha) * cosine_decay + alpha)
+    return schedule
+
+
+def lr_schedule(config: TrainConfig) -> Callable[[int], float]:
+    """The learning rate of update k (optax's count: 0 at the first
+    update) under ``config.lr_schedule``, with optax's formulas
+    (`diffquantum_tpu/train/energy.py:60-75`): 'constant'; 'cosine',
+    ``cosine_decay_schedule(lr, n_epoch, alpha=0.05)``; 'warmup_cosine',
+    a linear warmup from 0 over ``warm = max(1, n_epoch // 20)`` updates,
+    then a cosine down to 0.05 lr at update n_epoch
+    (``warmup_cosine_decay_schedule(0, lr, warm, n_epoch, end_value=0.05
+    lr)``)."""
+    lr, n = config.lr, config.n_epoch
+    if config.lr_schedule == "constant":
+        return lambda count: lr
+    if config.lr_schedule == "cosine":
+        return _cosine_decay(lr, n, 0.05)
+    if config.lr_schedule == "warmup_cosine":
+        warm = max(1, n // 20)
+        decay = _cosine_decay(lr, n - warm, 0.05)
+
+        def schedule(count: int) -> float:
+            if count >= warm:
+                return decay(count - warm)
+            return lr * count / warm
+        return schedule
+    raise ValueError(f"unknown lr_schedule {config.lr_schedule!r}")
+
+
 def make_optimizer(config: TrainConfig, params) -> torch.optim.Optimizer:
-    """The optimizer over ``params`` at a constant learning rate."""
-    if config.lr_schedule != "constant":
-        if config.lr_schedule in ("cosine", "warmup_cosine"):
-            raise NotImplementedError(
-                f"lr_schedule={config.lr_schedule!r} is not ported yet "
-                "(ROADMAP.md, Queue 1: LR schedules and "
-                "checkpoint/resume)")
-        raise ValueError(f"unknown lr_schedule {config.lr_schedule!r}")
+    """The optimizer over ``params`` with the learning rate of
+    :func:`lr_schedule`. Each param group counts its updates in
+    ``group["update_count"]``, part of the optimizer's ``state_dict``: a
+    step-pre hook sets the group's lr for the coming update from that
+    count, so a run resumed from a saved state continues the schedule."""
+    schedule = lr_schedule(config)
     if config.optimizer == "adam":
-        return torch.optim.Adam(params, lr=config.lr, betas=(0.9, 0.999),
-                                eps=1e-8)
-    if config.optimizer == "sgd":
-        return torch.optim.SGD(params, lr=config.lr)
-    raise ValueError(f"unknown optimizer {config.optimizer!r}")
+        opt = torch.optim.Adam(params, lr=schedule(0), betas=(0.9, 0.999),
+                               eps=1e-8)
+    elif config.optimizer == "sgd":
+        opt = torch.optim.SGD(params, lr=schedule(0))
+    else:
+        raise ValueError(f"unknown optimizer {config.optimizer!r}")
+    for group in opt.param_groups:
+        group["update_count"] = 0
+
+    def set_lr(optimizer, args, kwargs):
+        for group in optimizer.param_groups:
+            group["lr"] = schedule(group["update_count"])
+            group["update_count"] += 1
+    opt.register_step_pre_hook(set_lr)
+    return opt
+
+
+def serialization_to_optstate(restored: dict,
+                              template: torch.optim.Optimizer):
+    """Load an optimizer ``state_dict`` restored from a checkpoint into
+    ``template``, a freshly made optimizer over the run's parameters (the
+    JAX package rebuilds an optax state from its msgpack containers with
+    the fresh state as the template). Returns the template."""
+    template.load_state_dict(restored)
+    return template
 
 
 def l2_grad(coeff: torch.Tensor, w_l2: float) -> torch.Tensor:
@@ -120,10 +183,6 @@ def train_energy(
     mode = config.grad_mode
     if mode not in GRAD_MODES:
         raise ValueError(f"unknown grad_mode {mode!r}")
-    if config.checkpoint_dir:
-        raise NotImplementedError(
-            "checkpoint/resume is not ported yet (ROADMAP.md, Queue 1: LR "
-            "schedules and checkpoint/resume)")
     log = logger or NullLogger()
     log.write_text("!!!! train_energy ========")
     log.log_config({f.name: getattr(config, f.name)
@@ -139,6 +198,19 @@ def train_energy(
     coeff.requires_grad_(True)
     opt = make_optimizer(config, [coeff])
     draws = torch.Generator(device=dev).manual_seed(config.seed + 1)
+    start_epoch = 1
+
+    # checkpoint/resume (absent in the reference — SURVEY.md §5)
+    if config.checkpoint_dir and os.path.exists(
+            os.path.join(config.checkpoint_dir, "ckpt.pt")):
+        state = load_checkpoint(config.checkpoint_dir)
+        with torch.no_grad():
+            coeff.copy_(state["coeff"])
+        serialization_to_optstate(state["opt_state"], opt)
+        draws.set_state(state["rng"])
+        start_epoch = int(state["epoch"]) + 1
+        log.write_text(f"resumed from epoch {start_epoch - 1}")
+    ckpt_every = config.checkpoint_every if config.checkpoint_dir else 0
 
     T = float(T)
     n_steps = reference_n_steps(config.per_step, 0.0, T)
@@ -181,7 +253,7 @@ def train_energy(
 
     losses_gap, losses_raw = [], []
     t0 = time.time()
-    for epoch in range(1, config.n_epoch + 1):
+    for epoch in range(start_epoch, config.n_epoch + 1):
         c = coeff.detach()
         # the measured loss first, as the JAX trainer draws it; with exact
         # measurement the adjoint's own value is that number
@@ -202,9 +274,13 @@ def train_energy(
             log.log_metrics(epoch=epoch, loss=loss, gap=gap, mode=mode)
         if callback is not None:
             callback(epoch=epoch, coeff=coeff.detach(), loss=loss, gap=gap)
+        if ckpt_every and epoch % ckpt_every == 0:
+            save_checkpoint(config.checkpoint_dir, dict(
+                coeff=coeff, opt_state=opt.state_dict(),
+                rng=draws.get_state(), epoch=epoch))
     coeff = coeff.detach()
     final_state = None
-    if config.n_epoch >= 1:
+    if config.n_epoch >= start_epoch:
         with torch.no_grad():  # state of the RETURNED coefficients
             final_state = evolve(ham, envelope, coeff, psi0, 0.0, T,
                                  horizon=T, n_steps=n_steps, **evolve_kw)

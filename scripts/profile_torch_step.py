@@ -1,8 +1,8 @@
-"""Where the time of the port's MaxCut paths goes, on a card.
+"""Where the time of the port's paths goes, on a card.
 
     python3 scripts/profile_torch_step.py [--steps 50]
         [--path grad|seeds|mc|mc_seeds|fd|grad18|grad20|grad24|grad20hop|
-                grad10dense|demo_mc|tfim12|tfim20|mc20|all]
+                grad10dense|demo_mc|tfim12|tfim20|mc20|mol12|mol20|all]
 
 Paths (the ring MaxCut, n_basis 6, 30 Strang steps; 12 qubits unless
 named):
@@ -25,7 +25,12 @@ named):
             strings measured matrix-free, n_basis 6, 30 steps): K1;
   tfim20    the same at 20 qubits (39 strings): K5;
   mc20      one ``mc_energy_grad`` sample of the 20-qubit ring at a fixed
-            split time (K5 to s, one batched K5 launch over 80 branches).
+            split time (K5 to s, one batched K5 launch over 80 branches);
+  mol12     one ``energy_and_grad`` call on the H6 chain (12 qubits, 919
+            Pauli strings, 66 drives, T 5, n_basis 8, 60 steps,
+            ``t_sample='mid'``; chip_smoke.py's ``molecule_chain``): K1;
+  mol20     the same on the H10 chain (20 qubits, 7151 strings, 114
+            drives, 60 steps): K6 (about a second a step: use --steps 5).
 A problem is built only for the paths asked for (the 24-qubit one takes
 the host tens of seconds).
 For each it runs the steps under ``torch.profiler`` and prints: the wall
@@ -49,7 +54,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PATHS = ("grad", "seeds", "mc", "mc_seeds", "fd", "grad18", "grad20",
          "grad24", "grad20hop", "grad10dense", "demo_mc", "tfim12", "tfim20",
-         "mc20")
+         "mc20", "mol12", "mol20")
 
 
 def make_run(name):
@@ -76,6 +81,17 @@ def make_run(name):
         return loop(lambda: energy_and_grad(
             hop.ham, hop.envelope, hop.measurement, hop.coeff, hop.psi0,
             hop.T, 30))
+    if name.startswith("mol"):
+        from chip_smoke import _coeff, molecule_chain
+        from diffquantum_tpu_torch.dynamics.propagator import \
+            reference_n_steps
+        atoms = int(name[3:]) // 2
+        mol, _ = molecule_chain(atoms)
+        mc = _coeff(mol.envelope.coeff_shape, atoms, scale=0.3)
+        ms = reference_n_steps(10, 0.0, mol.T)
+        return loop(lambda: energy_and_grad(
+            mol.ham, mol.envelope, mol.measurement, mc, mol.psi0, mol.T, ms,
+            t_sample="mid"))
     if name == "demo_mc":
         demo = maxcut.demo_problem()
         return lambda k: train_energy(

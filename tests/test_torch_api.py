@@ -24,7 +24,6 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 
 DYNAMICS = "The rest of the single-state dynamics"
 LINDBLAD = "dynamics/lindblad.py"
-SCHEDULES = "LR schedules and checkpoint/resume"
 
 # name -> the Queue 1 item that ports it
 STILL_TO_PORT = {
@@ -38,11 +37,6 @@ STILL_TO_PORT = {
             "score_surrogate")},
     "diffquantum_tpu.dynamics.product": {
         "evolve_product_trajectory": DYNAMICS},
-    "diffquantum_tpu.train.energy": {"serialization_to_optstate":
-                                     SCHEDULES},
-    "diffquantum_tpu.utils": {"checkpointing": SCHEDULES,
-                              "load_checkpoint": SCHEDULES,
-                              "save_checkpoint": SCHEDULES},
 }
 
 

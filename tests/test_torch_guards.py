@@ -1,11 +1,11 @@
 """Guards of the PyTorch port: it imports neither JAX nor the JAX package
 (the sharded engine and its collectives included), its entry points
-refuse to run on the CPU unless asked (make_mesh too), what is not
-ported raises NotImplementedError instead of falling back (LR
-schedules, checkpoints) and what is ported keeps its refusals, the MC
-and FD estimators run at 18 qubits, the JAX package's engine names are no backends, the dense
-'auto' rule and the CPU's route of 'apply', a mesh larger than the
-world raises, and chip_smoke.py fails without a card."""
+refuse to run on the CPU unless asked (make_mesh and the molecule
+build functions too), what is ported keeps its refusals, the MC and FD
+estimators run at 18 qubits, the JAX package's engine names are no
+backends, the dense 'auto' rule and the CPU's route of 'apply', a mesh
+larger than the world raises, and chip_smoke.py fails without a
+card."""
 import ast
 import os
 import pathlib
@@ -57,7 +57,9 @@ def test_port_imports_no_jax():
     assert {"ops/expm.py", "ops/taylor_apply.py", "train/gate.py",
             "train/fidelity.py", "models/control.py",
             "models/vqe_h2.py", "parallel/comm.py",
-            "parallel/sharded_state.py"} <= names
+            "parallel/sharded_state.py", "models/molecule.py",
+            "utils/checkpointing.py", "utils/profiling.py",
+            "utils/plotting.py"} <= names
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
@@ -76,8 +78,10 @@ def no_card(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["build_maxcut", "init_coeff", "convert",
-                                   "measurement", "make_mesh"])
+                                   "measurement", "make_mesh", "build_h2_at",
+                                   "sector_fci_from_strings"])
 def test_entry_points_need_a_card_unless_asked(no_card, entry):
+    from diffquantum_tpu_torch.models import molecule
     env = SimpleEnvelope(basis="bspline", n_basis=4, omegas=(1.0,))
     call = {
         "build_maxcut": lambda: tmaxcut.build_maxcut(
@@ -86,6 +90,9 @@ def test_entry_points_need_a_card_unless_asked(no_card, entry):
         "convert": lambda: convert.params_from_numpy(np.zeros((1, 4))),
         "measurement": lambda: Measurement.create_diagonal(np.zeros(4)),
         "make_mesh": lambda: make_mesh({"state": 1}),
+        "build_h2_at": lambda: molecule.build_h2_at(0.7414),
+        "sector_fci_from_strings": lambda: molecule.sector_fci_from_strings(
+            [("ZZ", 1.0)], 2, 1),
     }[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
@@ -129,26 +136,19 @@ def test_router_raises_past_the_streamed_band(n):
         ("packed" if n == 18 else "mega_hop")
 
 
-@pytest.mark.parametrize("what", ["mesh", "cosine", "checkpoint",
-                                  "batched_18q", "envelope_jacobian",
-                                  "strings", "dense_seeds"])
+@pytest.mark.parametrize("what", ["mesh", "batched_18q", "envelope_jacobian",
+                                  "strings"])
 def test_unported_features_raise(what):
-    """What is not ported (LR schedules, checkpoints) raises
-    NotImplementedError naming its ROADMAP.md item. The features that are
-    ported keep the one refusal each has: the sharded string expectation
-    a state axis that is no power of two, the packed engines per-member
-    time grids (the MC estimator's 'vmap' mode at 18 qubits),
-    envelope_jacobian split times that are neither 0-dim nor [S], and
-    sampled measurement more than torch.multinomial's 2^24 categories."""
+    """The features that are ported keep the one refusal each has: the
+    sharded string expectation a state axis that is no power of two, the
+    packed engines per-member time grids (the MC estimator's 'vmap' mode
+    at 18 qubits), envelope_jacobian split times that are neither 0-dim
+    nor [S], and sampled measurement more than torch.multinomial's 2^24
+    categories."""
     from diffquantum_tpu_torch.measure import draw_shots
     from diffquantum_tpu_torch.parallel.comm import Axis
     from diffquantum_tpu_torch.parallel.mesh import Mesh
     p = _small_problem()
-    dense = tmaxcut.demo_problem(device="cpu")
-    cfg = TrainConfig(n_epoch=1)
-    run = lambda c: train_energy(p.ham, p.envelope, p.measurement,  # noqa
-                                 p.psi0, p.T, c)
-    roadmap = (NotImplementedError, "ROADMAP.md")
     three = Mesh(("state",), {"state": 3},
                  {"state": Axis("state", 3, 0, (0, 1, 2), None)},
                  torch.device("cpu"))
@@ -157,9 +157,6 @@ def test_unported_features_raise(what):
             p.psi0, Measurement.create_strings(
                 [("Z" * 4, 1.0)], device="cpu").strings, three),
             (ValueError, "not a power of two")),
-        "cosine": (lambda: run(cfg.replace(lr_schedule="cosine")), roadmap),
-        "checkpoint": (lambda: run(cfg.replace(checkpoint_dir="ckpt")),
-                       roadmap),
         # the MC estimator's batch at 18 qubits on the packed engine
         "batched_18q": (lambda: mc_energy_grad_batch(
             _ham(18), SimpleEnvelope(basis="bspline", n_basis=4,
@@ -175,11 +172,6 @@ def test_unported_features_raise(what):
         "strings": (lambda: draw_shots(
             torch.ones((1, 1)).expand(1, 2**24 + 1), 4,
             torch.Generator()), (ValueError, "at most")),
-        # dense seed populations run; their LR schedules do not yet
-        "dense_seeds": (lambda: train_energy_seeds(
-            dense.ham, dense.envelope, dense.measurement, dense.psi0,
-            dense.T, cfg.replace(lr_schedule="cosine"), n_seeds=2),
-            roadmap),
     }[what]
     with pytest.raises(error, match=match):
         call()
