@@ -21,12 +21,15 @@ at the first phase that does not hold:
    the cases listed in phase_packed_kernels (hops inside and across the
    tile boundary, two sign planes, T = 1, B > 1; each line names the
    plan pk_plan gives its shape), and the 24-qubit backward run twice,
-   bit-identical; then the same pair
-   through K6's entry points (the palindromic A/B schedule of hop drive
+   bit-identical; K2 at the 'fused' MCWF step's shape (T = 1, one zero
+   phase row and one angle row, 16 and 17 qubits, B = 8); then the same
+   pair through K6's entry points (the palindromic A/B schedule of hop drive
    sets, phase_hop_kernels: the molecule drive set at 19, 20 and 24
    qubits, a set whose B ops commute, T = 1, B = 4); K7
    (csrc/taylor_apply.cu, phase_dense_kernels: the paths' shapes, both
-   sides of its two launch configurations' boundary and B = 64); and the
+   sides of its two launch configurations' boundary, B = 64, and the
+   dense MCWF's non-Hermitian M_eff at d = 2, B = 2000 and d = 1024,
+   B = 64); and the
    pair through
    K4's entry point, the per-call chain of the sharded engine
    (phase_chunked_kernels: 12 qubits T = 1, the 20-qubit random graph at
@@ -100,6 +103,23 @@ at the first phase that does not hold:
       strings): the grad step (K6) against central differences, its
       time split between K6 and the string measurement, and 3 cosine
       epochs;
+   m. open-system dynamics (phase_open; the JAX demo
+      demos/demo_open_control.py's recipes): (a) the damped qubit's
+      noise-blind against noise-aware control through evolve_lindblad,
+      300 epochs each, rho(T) against float64, and 2000 dense MCWF
+      trajectories (K7 at d = 2, B = 2000) against the master equation;
+      (b) T1-aware MaxCut at 16 qubits through score_surrogate on
+      ``evolve_mcwf_structured(backend='fused')`` (K2, one T = 1 launch a
+      step each way): 'fused' against 'xla' on one set of draws, 4 Adam
+      steps on fixed draws, 30 epochs, 17 qubits, the epoch's time at 8
+      and 128 trajectories; (c) evolve_lindblad_structured: 4 Adam
+      evaluations at 12 qubits, a forward and backward at 14 (rho 2 GiB,
+      its peak memory), 3 qubits against the dense engine in float64;
+      (d) 256 dephasing trajectories at 12 qubits against the master
+      equation; (e) the dense MCWF on the 10q ring (K7 at d = 1024,
+      B = 64) against the same draws in float64; (f) the 16q product
+      trajectory, 1000 steps, against K1; (g) evolve_ode at 4 qubits
+      against 'expm';
    each checked against the eager Strang engine on the card
    (``backend='product'``) or the adjoint gradient, with the limits
    named below;
@@ -113,7 +133,7 @@ at the first phase that does not hold:
    (and batched, B = 8 at 20), the 18/20/24-qubit grad steps and the
    20-qubit 8-seed epoch, with the host's time to enqueue one chain; K6
    on the molecule drive set at 20 qubits (and batched, B = 4) and 24,
-   and the 20-qubit molecule grad step; K7 at the nine shapes of its
+   and the 20-qubit molecule grad step; K7 at the eleven shapes of its
    kernel check, forward and backward, each beside its bound, its plain
    version and matrix_exp + product (and that route's VJP), then the 10q
    dense grad step, the CNOT epoch, the 4q demo MC epoch and the 8q dense
@@ -122,7 +142,9 @@ at the first phase that does not hold:
    channel12q and channel18q grad steps, one 20q MC sample and the 20q
    FD gradient (phase_slice_times); the molecule phase's own (H2's
    epochs, the H4 and H6 seed epochs, H6's sector FCI and grad step,
-   H10's grad step and its split);
+   H10's grad step and its split); phase_open's (K2 at its T = 1 shape,
+   the 16q T1-aware epoch at 8 and 128 trajectories, the structured
+   master equation at 12 and 14 qubits, the product trajectory);
 5. a JSON line of per-kernel numbers, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -444,13 +466,22 @@ def phase_kernels():
                 ("17q ring MaxCut, T=30, B=4", 17, 30, 4, 4, "maxcut"),
                 ("17q ring MaxCut, T=30, B=8 (a grid in two launches of 4 "
                  "members)", 17, 30, 8, 8, "maxcut"),
-                ("12q ring MaxCut, T=1, B=3", 12, 1, 3, 3, "maxcut")]
+                ("12q ring MaxCut, T=1, B=3", 12, 1, 3, 3, "maxcut"),
+                ("16q ring MaxCut, T=1, B=8 on one zero phase row and one "
+                 "angle row (the 'fused' MCWF step)", 16, 1, 8, 1, "mcwf"),
+                ("17q ring MaxCut, T=1, B=8 on one zero phase row and one "
+                 "angle row (the 'fused' MCWF step)", 17, 1, 8, 1, "mcwf")]
     for label, n, n_steps, b, rows, kind in k2_cases:
         d = 2**n
         rng = np.random.default_rng(n * 1000 + n_steps + b)
         if kind == "maxcut":
             prob, th, tx, qubits, kinds = maxcut_chain(n, n_steps, seed=n + b,
                                                        members=rows)
+            w = prob.measurement.diag
+        elif kind == "mcwf":  # fused_rot_block's inputs: no phase
+            prob, _, tx, qubits, kinds = maxcut_chain(n, 1, seed=n + b,
+                                                      members=1)
+            th = torch.zeros((1, 1, d), dtype=torch.float32, device=DEVICE)
             w = prob.measurement.diag
         else:
             th, tx, qubits, kinds = mixed_chain(n, n_steps, seed=n)
@@ -1992,10 +2023,70 @@ def _hermitian_inputs(d, b, seed):
     return CP(f(h.real), f(h.imag)), psi, g, zs, order, 2**s
 
 
+def open_dense_problems():
+    """The dense MCWF problems of phase_open, built once: (ham, envelope,
+    float32 CollapseSet, float64 CollapseSet, T, n_steps) of the damped
+    qubit (the JAX demo's act one: detuning 0.5, amplitude damping gamma
+    0.15, T = 2, 30 steps) and of the 10q dense ring (T1 gamma 0.1 on
+    every qubit, 30 steps)."""
+    ring = dense_problems()["ring"]  # before _DENSE gains other keys
+    if "qubit" not in _DENSE:
+        from diffquantum_tpu_torch.dynamics.lindblad import (
+            CollapseSet, amplitude_damping)
+        from diffquantum_tpu_torch.models import control
+        from diffquantum_tpu_torch.pulses.envelope import SimpleEnvelope
+
+        def collapse(ops):
+            import torch
+            c64 = CollapseSet.create(ops, dtype=torch.float64, device=DEVICE)
+            f32 = lambda x: x.astype(torch.float32)  # noqa: E731
+            return CollapseSet(f32(c64.ops), f32(c64.k_op), c64.norms), c64
+
+        ham, omegas = control.single_qubit_controls(detuning=0.5,
+                                                    device=DEVICE)
+        env = SimpleEnvelope(basis="bspline", n_basis=6, omegas=omegas)
+        _DENSE["qubit"] = (ham, env) + collapse(
+            [amplitude_damping(0.15, 0, 1)]) + (2.0, 30)
+        n, t0 = ring.n_qubits, time.perf_counter()
+        _DENSE["ring_t1"] = (ring.ham, ring.envelope) + collapse(
+            [amplitude_damping(0.1, q, n) for q in range(n)]) + (ring.T, 30)
+        log(f"host: {n} T1 collapse operators of {2**n} x {2**n} (K and "
+            f"the norms) in {time.perf_counter() - t0:.3f} s")
+    return _DENSE
+
+
+def meff_inputs(which, b, seed):
+    """One step's K7 inputs of the dense MCWF's no-jump branch: M_eff =
+    -i H(t) - K/2 (not Hermitian) at amplitudes drawn within the
+    envelope's bounds, B random unit states and cotangents, z = dt and
+    the order and substeps evolve_mcwf takes from its H_eff bound."""
+    import torch
+    from diffquantum_tpu_torch.dynamics.propagator import _amplitude_bound
+    from diffquantum_tpu_torch.ops import cpx
+    from diffquantum_tpu_torch.ops import taylor_apply as ta
+    from diffquantum_tpu_torch.ops.cpx import CP
+    from diffquantum_tpu_torch.ops.expm import taylor_params
+    ham, env, c, _, T, n_steps = open_dense_problems()[which]
+    rng = np.random.default_rng(seed)
+    omg = np.asarray(env.omegas)
+    u = torch.tensor(omg * rng.uniform(-1, 1, omg.shape), dtype=torch.float32,
+                     device=DEVICE)
+    m_eff = cpx.add(cpx.mulmi(ham.at(u)), cpx.rscale(c.k_op, -0.5))
+    d = m_eff.shape[-1]
+    order, s = taylor_params(T / n_steps * (
+        ham.norm_bound(_amplitude_bound(env)) + 0.5 * c.k_norm))
+    psi = _random_cp(rng, (b, d), 1.0 / np.sqrt(2 * d))
+    g = _random_cp(rng, (b, d), 1.0 / np.sqrt(2 * d))
+    zs = ta.substep_z(T / n_steps, 0.0, 2**s, psi.re)
+    return (CP(m_eff.re.contiguous(), m_eff.im.contiguous()), psi, g, zs,
+            order, 2**s)
+
+
 def dense_kernel_cases():
     """(label, inputs) of K7 at the shapes of this slice's paths, the
     boundary of its two launch configurations (d = 64 block-resident,
-    d = 65 row-split) and the 10q MC branches at B = 64."""
+    d = 65 row-split), the 10q MC branches at B = 64, and the dense MCWF's
+    non-Hermitian M_eff at its two shapes (phase_open (a) and (e))."""
     p = dense_problems()
     from diffquantum_tpu_torch.pulses.envelope import SimpleEnvelope
     had, two, demo, ring = p["hadamard"], p["two"], p["demo"], p["ring"]
@@ -2016,12 +2107,16 @@ def dense_kernel_cases():
          k7_inputs(ring.ham, ring.envelope, ring.T, 30, 40, 40)),
         ("10q branches, d=1024 B=64",
          k7_inputs(ring.ham, ring.envelope, ring.T, 30, 64, 64)),
+        ("open (a): M_eff of the damped qubit, 2000 trajectories, d=2 "
+         "B=2000", meff_inputs("qubit", 2000, 2)),
+        ("open (e): M_eff of the 10q ring with T1 on every qubit, 64 "
+         "trajectories, d=1024 B=64", meff_inputs("ring_t1", 64, 1064)),
     ]
 
 
 def phase_dense_kernels():
     """K7 forward and backward against the plain versions on the card, at
-    the nine shapes of dense_kernel_cases. Returns {'k7': (forward,
+    the eleven shapes of dense_kernel_cases. Returns {'k7': (forward,
     backward) max abs errors} at the 10q state's shape."""
     import torch
     from diffquantum_tpu_torch.ops import taylor_apply as ta
@@ -3570,6 +3665,597 @@ def phase_molecule(total):
     _mol_h10(total, card)
 
 
+# --------------------------------------------------------------------------
+# open-system dynamics (dynamics/lindblad.py), the adaptive-ODE engine and
+# the product trajectory, at the JAX demo's sizes
+# (demos/demo_open_control.py)
+# --------------------------------------------------------------------------
+
+# (a) 2000 trajectories against the master equation: 5 standard errors
+# plus 0.01 for the O(dt) bias of the first-order jump rule at 30 steps;
+# the float32 master equation against float64 on the card, rho atol.
+OPEN_MC_SE, OPEN_MC_BIAS = 5.0, 0.01
+OPEN_RHO_F64_ATOL = 1e-5
+# (b) 'fused' (K2) against 'xla' on one set of draws: states and logps
+# rtol/atol, the surrogate's gradient rtol, as tests/test_lindblad.py::
+# test_structured_mcwf_fused_backend_matches_xla holds the JAX package.
+OPEN_FUSED_RTOL, OPEN_FUSED_ATOL, OPEN_FUSED_GRAD_RTOL = 1e-4, 1e-5, 5e-3
+# (c) the structured master equation against the dense one in float64 at
+# 3 qubits and 400 steps (the O(dt^2) splitting difference), as
+# tests/test_lindblad.py::test_lindblad_structured_matches_dense.
+OPEN_SPLIT_ATOL = 5e-5
+# (d) the dephasing trajectories' mean against the master equation
+OPEN_DEPH_SE = 5.0
+# (e) the dense MCWF on K7 against the same draws on the recurrence in
+# float64, states atol; (f) the product trajectory's endpoint against K1,
+# and every state's norm: over 1000 steps of 16 rotations and two phase
+# products the eager engine's float32 rounding moves a norm by ~1e-4 (an
+# H100 run read 8.8e-5 at 16q, where K1's own chain read 7.7e-6; on the
+# CPU the eager chain read 5.6e-5 at 10q and 8.7e-5 at 12q, K1's plain
+# version 5.2e-5 and 8.1e-5), so the limit sits ~2.3x above the card's
+# reading; (g) the adaptive ODE against 'expm' at 2000 midpoint steps in
+# float64.
+OPEN_K7_F64_ATOL = 1e-5
+OPEN_TRAJ_ATOL, OPEN_NORM_ATOL = 5e-5, 2e-4
+OPEN_ODE_ATOL = 1e-5
+
+
+def _allclose_excess(a, b, rtol, atol) -> float:
+    """max(|a - b| - (atol + rtol |b|)): <= 0 where numpy's allclose
+    holds."""
+    return float(((a - b).abs() - (atol + rtol * b.abs())).max())
+
+
+def _timed(label, fn):
+    t0 = time.perf_counter()
+    out = fn()
+    log(f"open: {label} took {time.perf_counter() - t0:.2f} s")
+    return out
+
+
+def _open_control(total, card):
+    """(a) The JAX demo's act one: noise-blind (closed-system
+    train_fidelity) against noise-aware (Adam through evolve_lindblad)
+    control of a damped qubit, 300 epochs each; the final rho against
+    float64; 2000 dense MCWF trajectories (K7, d = 2, B = 2000, one
+    launch a step) against the master equation."""
+    import torch
+    from diffquantum_tpu_torch.dynamics.lindblad import (
+        density_from_trajectories, evolve_lindblad, evolve_mcwf,
+        expectation_rho)
+    from diffquantum_tpu_torch.models import control
+    from diffquantum_tpu_torch.ops import cpx
+    from diffquantum_tpu_torch.ops.cpx import CP
+    from diffquantum_tpu_torch.train import TrainConfig, train_fidelity
+    ham, env, c, c64, T, n_steps = open_dense_problems()["qubit"]
+    epochs, lr, n_traj = 300, 0.1, 2000
+    psi0 = cpx.from_complex(np.array([1.0, 0.0]), device=DEVICE)
+    rho0 = cpx.from_complex(np.array([[1.0, 0.0], [0.0, 0.0]]),
+                            device=DEVICE)
+    target = np.array([0.0, 1.0])  # <1|rho|1>
+
+    def open_infidelity(coeff, h=ham, cs=c, r0=rho0):
+        rho = evolve_lindblad(h, env, coeff, r0, cs, 0.0, T, horizon=T,
+                              n_steps=n_steps)
+        return 1.0 - expectation_rho(target, rho), rho
+
+    def train():
+        cfg = TrainConfig(n_basis=6, n_epoch=epochs, lr=lr,
+                          grad_mode="adjoint", seed=0)
+        blind = train_fidelity(
+            ham, env, CP(psi0.re[None], psi0.im[None]),
+            cpx.from_complex(np.array([[0.0, 1.0]]), device=DEVICE), T,
+            cfg).coeff.detach()
+        coeff = env.init_coeff(torch.Generator().manual_seed(0), scale=1.0,
+                               device=DEVICE).requires_grad_(True)
+        opt = torch.optim.Adam([coeff], lr=lr)
+        for _ in range(epochs):
+            opt.zero_grad()
+            open_infidelity(coeff)[0].backward()
+            opt.step()
+        return blind, coeff.detach()
+
+    # train_fidelity's epochs run 'expm' (d = 2, one state); its final
+    # states, the [1, d] pair batch, take 'apply': K7, one launch a step
+    blind, aware = _timed("(a) noise-blind + noise-aware training", lambda:
+                          _counted_path(total, "open (a): 300 noise-blind "
+                                        "epochs ('expm') + 300 noise-aware "
+                                        "epochs (evolve_lindblad)",
+                                        {"k7_forward": n_steps}, train))
+    with torch.no_grad():
+        f_blind = 1.0 - float(open_infidelity(blind)[0])
+        inf_aware, rho = open_infidelity(aware)
+        f_aware = 1.0 - float(inf_aware)
+        ham64 = control.single_qubit_controls(
+            detuning=0.5, dtype=torch.float64, device=DEVICE)[0]
+        rho64 = open_infidelity(aware.double(), ham64, c64,
+                                rho0.astype(torch.float64))[1]
+    err64 = max(float((rho.re.double() - rho64.re).abs().max()),
+                float((rho.im.double() - rho64.im).abs().max()))
+    log(f"open (a): gamma 0.15, T = {T}: open-system fidelity noise-blind "
+        f"{f_blind!r}, noise-aware {f_aware!r} (advantage "
+        f"{f_aware - f_blind:+.4f}); rho(T) against float64 max abs "
+        f"{err64!r} (atol {OPEN_RHO_F64_ATOL})")
+    if not f_aware > f_blind:
+        fail("open (a): the noise-aware pulse does not beat the noise-blind "
+             "one under decoherence")
+    if not err64 <= OPEN_RHO_F64_ATOL:
+        fail(f"open (a): float32 evolve_lindblad differs from float64 by "
+             f"{err64} (atol {OPEN_RHO_F64_ATOL})")
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    psis = _timed("(a) 2000 MCWF trajectories", lambda: _counted_path(
+        total, "open (a): evolve_mcwf, 2000 trajectories x 30 steps (K7 at "
+        "d=2, B=2000)", {"k7_forward": n_steps},
+        lambda: evolve_mcwf(ham, env, aware, psi0, c, 0.0, T, horizon=T,
+                            n_steps=n_steps, generator=gen, n_traj=n_traj)))
+    p1 = (psis.re[:, 1] ** 2 + psis.im[:, 1] ** 2).double()
+    f_mc, se = float(p1.mean()), float(p1.std() / np.sqrt(n_traj))
+    f_rho = float(expectation_rho(target, density_from_trajectories(psis)))
+    lim = float(OPEN_MC_SE * se + OPEN_MC_BIAS)
+    log(f"open (a): MCWF fidelity {f_mc!r} (standard error {se!r}; from "
+        f"the trajectories' rho {f_rho!r}) against the master equation "
+        f"{f_aware!r}: diff {abs(f_mc - f_aware)!r} (limit {lim!r})")
+    if not (np.isfinite(f_mc) and abs(f_mc - f_aware) <= lim
+            and abs(f_rho - f_mc) < 1e-5):
+        fail("open (a): the MCWF trajectories disagree with the master "
+             "equation")
+
+
+def _open_mcwf_maxcut(total, card, sizes=(16, 17), trajs=(8, 128)):
+    """(b) The demo's act two, ``--mcwf-scale 16 --mcwf-backend fused``:
+    T1-aware MaxCut training at 16 qubits through score_surrogate on K2
+    (one forward and one adjoint launch a step); 'fused' against 'xla' on
+    one set of draws; 4 Adam steps on fixed draws; 17 qubits; the epoch's
+    time at 8 and 128 trajectories."""
+    import torch
+    from diffquantum_tpu_torch.dynamics.lindblad import (
+        StructuredNoise, draw_mcwf, evolve_mcwf_structured, score_surrogate)
+    from diffquantum_tpu_torch.models import maxcut
+    from diffquantum_tpu_torch.ops import cpx
+    n_steps, n_traj, epochs, lr = 10, trajs[0], 30, 5e-2
+    n, top_n = sizes
+    probs = {m: maxcut.build_maxcut(m, maxcut.ring_graph(m), n_basis=4,
+                                    dense=False, device=DEVICE)
+             for m in sizes}
+    noise = {m: StructuredNoise(m, t1=[(q, 0.1) for q in range(m)])
+             for m in probs}
+    prob = probs[n]
+    T = float(prob.T)
+
+    def loss(cc, n=n, backend="fused", draws=None, gen=None, traj=n_traj):
+        p = probs[n]
+        psis, logps = evolve_mcwf_structured(
+            p.ham, p.envelope, cc, p.psi0, noise[n], 0.0, T, horizon=T,
+            n_steps=n_steps, generator=gen, n_traj=traj, return_logp=True,
+            backend=backend, draws=draws)
+        vals = torch.sum(cpx.abs2(psis) * p.measurement.diag, dim=-1)
+        return score_surrogate(vals, logps), psis, logps
+
+    k2 = lambda k: {"k2_forward": k, "k2_backward": k}  # noqa: E731
+    cc = _coeff(prob.envelope.coeff_shape, n, scale=0.3).requires_grad_(True)
+    draws = draw_mcwf(torch.Generator(device=DEVICE).manual_seed(9), n_steps,
+                      n_traj, n)
+    runs = {}
+    for backend, want in (("fused", k2(n_steps)), ("xla", {})):
+        def run(backend=backend):
+            v, ps, lp = loss(cc, backend=backend, draws=draws)
+            return v, ps, lp, torch.autograd.grad(v, cc)[0]
+        runs[backend] = _counted_path(
+            total, f"open (b): {n}q score-surrogate value and gradient, "
+            f"'{backend}', {n_traj} trajectories x 10 steps", want, run)
+    (vf, psf, lpf, gf), (vx, psx, lpx, gx) = runs["fused"], runs["xla"]
+    ex = max(_allclose_excess(a.detach(), b.detach(), OPEN_FUSED_RTOL,
+                              OPEN_FUSED_ATOL)
+             for a, b in ((psf.re, psx.re), (psf.im, psx.im), (lpf, lpx)))
+    exg = _allclose_excess(gf, gx, OPEN_FUSED_GRAD_RTOL, OPEN_FUSED_ATOL)
+    jumps = int((lpx.detach() - lpx.detach().max()).abs().gt(1e-3).sum())
+    log(f"open (b): {n}q 'fused' against 'xla' (one set of draws, {jumps} "
+        f"of {n_traj} trajectories off the likeliest path): value "
+        f"{vf.item()!r} vs {vx.item()!r}; states and logps excess over rtol "
+        f"{OPEN_FUSED_RTOL} / atol {OPEN_FUSED_ATOL}: {ex!r}; gradient "
+        f"excess over rtol {OPEN_FUSED_GRAD_RTOL}: {exg!r}; gradient max "
+        f"rel diff {rel_err(gf, gx)!r}")
+    if not (ex <= 0 and exg <= 0 and torch.isfinite(gf).all()):
+        fail("open (b): the 'fused' MCWF (K2) disagrees with 'xla'")
+
+    def crn():  # common random numbers: the same draws every step
+        c = cc.detach().clone().requires_grad_(True)
+        opt = torch.optim.Adam([c], lr=lr)
+        losses = []
+        for _ in range(4):
+            opt.zero_grad()
+            v = loss(c, draws=draws)[0]
+            v.backward()
+            opt.step()
+            losses.append(v.item())
+        with torch.no_grad():
+            losses.append(loss(c, draws=draws)[0].item())
+        return losses
+    losses = _counted_path(total, "open (b): 4 Adam steps on fixed draws",
+                           {"k2_forward": 5 * n_steps,
+                            "k2_backward": 4 * n_steps}, crn)
+    log(f"open (b): fixed draws, loss over 4 Adam steps {losses!r}")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail("open (b): 4 Adam steps on fixed draws did not lower the "
+             "surrogate")
+
+    def train(traj=n_traj, n_epochs=epochs, seed=7):
+        c = prob.envelope.init_coeff(torch.Generator().manual_seed(0),
+                                     scale=0.3, device=DEVICE)
+        c.requires_grad_(True)
+        opt = torch.optim.Adam([c], lr=lr)
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        vals = []
+        for _ in range(n_epochs):
+            opt.zero_grad()
+            v = loss(c, gen=gen, traj=traj)[0]
+            v.backward()
+            opt.step()
+            vals.append(v.detach())
+        return [float(v) for v in vals], c.detach()
+    t0 = time.perf_counter()
+    vals, c_end = _counted_path(
+        total, f"open (b): 30 epochs of T1-aware training, {n}q, {n_traj} "
+        "trajectories x 10 steps", k2(epochs * n_steps), train)
+    wall = time.perf_counter() - t0
+    log(f"open (b): noisy MaxCut energy first {vals[0]!r} -> last "
+        f"{vals[-1]!r} (T1 gamma 0.1 on every qubit; 30 epochs in {wall:.2f} "
+        f"s)")
+    if not (np.all(np.isfinite(vals)) and torch.isfinite(c_end).all()):
+        fail("open (b): T1-aware training gave non-finite values")
+
+    c17 = _coeff(probs[top_n].envelope.coeff_shape, top_n, scale=0.3)
+    c17.requires_grad_(True)
+
+    def top():
+        v = loss(c17, n=top_n,
+                 gen=torch.Generator(device=DEVICE).manual_seed(3))
+        return v[0], torch.autograd.grad(v[0], c17)[0]
+    v17, g17 = _counted_path(total, f"open (b): {top_n}q value and gradient "
+                             "(the top of K2's band)", k2(n_steps), top)
+    log(f"open (b): {top_n}q surrogate {v17.item()!r}, gradient max-norm "
+        f"{float(g17.abs().max())!r}")
+    if not (torch.isfinite(v17) and torch.isfinite(g17).all()):
+        fail(f"open (b): the {top_n}q step is not finite")
+    for traj in trajs:
+        ms = cuda_ms(lambda: train(traj, 1, seed=11), 3, warmup=1)
+        log(f"time: open (b) {n}q T1-aware epoch, {traj} trajectories x 10 "
+            f"steps (K2 forward + adjoint a step, jump logic, Adam) {ms!r} "
+            f"ms [{card}]")
+
+
+def open_structured_problem(n, dtype, seed, t1=True):
+    """The JAX tests' driven noisy system (tests/test_lindblad.py::
+    _structured_noisy_problem): a ZZ chain, X on every qubit, a drift
+    0.3 j / d, T1 0.35 on qubit 0 and dephasing 0.4 on the last; the
+    coefficients from ``seed``."""
+    import torch
+    from diffquantum_tpu_torch.dynamics.hamiltonian import (
+        ControlledHamiltonian, TermStructure)
+    from diffquantum_tpu_torch.dynamics.lindblad import StructuredNoise
+    from diffquantum_tpu_torch.ops import linalg
+    from diffquantum_tpu_torch.pulses.envelope import SimpleEnvelope
+    d = 2**n
+    st = [TermStructure(kind="diag", diag=linalg.zz_diagonal(n, i, i + 1))
+          for i in range(n - 1)]
+    st += [TermStructure(kind="1q", qubit=q, local=linalg.X)
+           for q in range(n)]
+    ham = ControlledHamiltonian.create_structured(
+        d, tuple(st), h0_structure=TermStructure(
+            kind="diag", diag=0.3 * np.arange(d) / d), dtype=dtype)
+    env = SimpleEnvelope(basis="bspline", n_basis=4,
+                         omegas=(np.pi,) * len(st))
+    coeff = torch.tensor(0.5 * np.random.default_rng(seed).standard_normal(
+        env.coeff_shape), dtype=dtype, device=DEVICE)
+    noise = StructuredNoise(n, t1=[(0, 0.35)] if t1 else [],
+                            dephasing=[(n - 1, 0.4)])
+    return ham, env, coeff, noise
+
+
+def _open_structured(total, card, sizes=(12, 14)):
+    """(c) evolve_lindblad_structured: 4 Adam evaluations at 12 qubits
+    (rho 128 MiB), one forward and backward at 14 (rho 2 GiB) with its
+    peak memory, and 3 qubits against the dense engine in float64."""
+    import torch
+    from diffquantum_tpu_torch.dynamics.hamiltonian import \
+        ControlledHamiltonian
+    from diffquantum_tpu_torch.dynamics.lindblad import (
+        CollapseSet, evolve_lindblad, evolve_lindblad_structured,
+        expectation_rho)
+    from diffquantum_tpu_torch.ops import linalg
+    from diffquantum_tpu_torch.ops.cpx import CP
+    T, n_steps = 0.8, 8
+
+    def setup(n):
+        ham, env, coeff, noise = open_structured_problem(n, torch.float32,
+                                                         seed=5)
+        d = 2**n
+        rho0 = CP(torch.full((d, d), 1.0 / d, device=DEVICE),
+                  torch.zeros((d, d), device=DEVICE))
+        w = torch.cos(torch.linspace(0, 7, d, device=DEVICE))
+        run = lambda cc: expectation_rho(w, evolve_lindblad_structured(  # noqa
+            ham, env, cc, rho0, noise, 0.0, T, horizon=T, n_steps=n_steps))
+        return coeff, run
+
+    coeff, run = setup(sizes[0])
+
+    def adam():
+        c = coeff.clone().requires_grad_(True)
+        opt = torch.optim.Adam([c], lr=5e-2)
+        losses = []
+        for _ in range(4):
+            opt.zero_grad()
+            v = run(c)
+            v.backward()
+            opt.step()
+            losses.append(v.item())
+        return losses
+    t0 = time.perf_counter()
+    losses = _counted_path(total, f"open (c): {sizes[0]}q structured master "
+                           "equation, 4 Adam evaluations", {}, adam)
+    ms = (time.perf_counter() - t0) / 4 * 1e3
+    log(f"open (c): {sizes[0]}q losses {losses!r}")
+    log(f"time: open (c) {sizes[0]}q structured master-equation epoch (8 "
+        f"steps, "
+        f"forward + backward + Adam) {ms:.3f} ms (host clock over 4) "
+        f"[{card}]")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail("open (c): the noisy objective did not fall")
+    del run
+    coeff, run = setup(sizes[1])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def fwd_bwd():
+        c = coeff.clone().requires_grad_(True)
+        v = run(c)
+        return v.detach(), torch.autograd.grad(v, c)[0]
+    t0 = time.perf_counter()
+    v14, g14 = _counted_path(total, f"open (c): {sizes[1]}q forward and "
+                             "backward", {}, fwd_bwd)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"open (c): {sizes[1]}q value {float(v14)!r}, gradient max-norm "
+        f"{float(g14.abs().max())!r}")
+    log(f"time: open (c) {sizes[1]}q structured master equation forward + "
+        f"backward (8 steps, rho {2 * 4**sizes[1] * 4 / 2**30:.3f} GiB) "
+        f"{wall * 1e3:.3f} ms, peak memory {peak:.2f} GiB [{card}]")
+    if not (torch.isfinite(v14) and torch.isfinite(g14).all()):
+        fail(f"open (c): the {sizes[1]}q step is not finite")
+    del run
+    torch.cuda.empty_cache()
+
+    f64 = torch.float64
+    ham, env, coeff, noise = open_structured_problem(3, f64, seed=2)
+    hs = [np.diag(st.diag) if st.kind == "diag" else
+          linalg.op_on_qubits(st.local, [st.qubit], 3)
+          for st in ham.structure]
+    dense = ControlledHamiltonian.create(np.diag(ham.h0_structure.diag), hs,
+                                         dtype=f64, device=DEVICE)
+    cs = CollapseSet.create(noise.dense_collapse_ops(), dtype=f64,
+                            device=DEVICE)
+    psi = np.zeros(8)
+    psi[5] = 1.0
+    rho0 = CP(torch.tensor(np.outer(psi, psi), dtype=f64, device=DEVICE),
+              torch.zeros((8, 8), dtype=f64, device=DEVICE))
+    kw = dict(horizon=1.2, n_steps=400)
+
+    def both():
+        return (evolve_lindblad(dense, env, coeff, rho0, cs, 0.0, 1.2, **kw),
+                evolve_lindblad_structured(ham, env, coeff, rho0, noise, 0.0,
+                                           1.2, **kw))
+    want, got = _counted_path(total, "open (c): 3q structured against dense, "
+                              "float64, 400 steps", {}, both)
+    err = max(float((got.re - want.re).abs().max()),
+              float((got.im - want.im).abs().max()))
+    tr = float(torch.diagonal(got.re).sum())
+    log(f"open (c): 3q structured against dense max abs {err!r} (atol "
+        f"{OPEN_SPLIT_ATOL}); trace {tr!r}")
+    if not (err <= OPEN_SPLIT_ATOL and abs(tr - 1.0) < 1e-8):
+        fail("open (c): the structured master equation disagrees with the "
+             "dense one at 3 qubits")
+
+
+def _open_dephasing(total, card, n=12):
+    """(d) 256 dephasing trajectories of the 12q ring (dephasing 0.2 on
+    every qubit, 30 steps): their mean cost within 5 standard errors of
+    evolve_lindblad_structured on the same noise."""
+    import torch
+    from diffquantum_tpu_torch.dynamics.lindblad import (
+        StructuredNoise, evolve_dephasing_trajectories,
+        evolve_lindblad_structured, expectation_rho)
+    from diffquantum_tpu_torch.ops.cpx import CP
+    from diffquantum_tpu_torch.models import maxcut
+    prob = maxcut.build_maxcut(n, maxcut.ring_graph(n), n_basis=6,
+                               dense=False, device=DEVICE)
+    d, n_traj, n_steps = 2**n, 256, 30
+    T = float(prob.T)
+    noise = StructuredNoise(n, dephasing=[(q, 0.2) for q in range(n)])
+    coeff = _coeff(prob.envelope.coeff_shape, n)
+    w = prob.measurement.diag
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    rho0 = CP(torch.full((d, d), 1.0 / d, device=DEVICE),
+              torch.zeros((d, d), device=DEVICE))
+
+    def both():
+        with torch.no_grad():
+            psis = evolve_dephasing_trajectories(
+                prob.ham, prob.envelope, coeff, prob.psi0, noise, 0.0, T,
+                horizon=T, n_steps=n_steps, generator=gen, n_traj=n_traj)
+            rho = evolve_lindblad_structured(
+                prob.ham, prob.envelope, coeff, rho0, noise, 0.0, T,
+                horizon=T, n_steps=n_steps)
+        return psis, float(expectation_rho(prob.measurement, rho))
+    psis, e_rho = _counted_path(total, f"open (d): {n}q dephasing "
+                                "trajectories and master equation", {}, both)
+    vals = torch.sum((psis.re ** 2 + psis.im ** 2) * w, dim=-1).double()
+    mean, se = float(vals.mean()), float(vals.std() / np.sqrt(n_traj))
+    log(f"open (d): {n}q mean cost over {n_traj} dephasing trajectories "
+        f"{mean!r} (standard error {se!r}) against the master equation "
+        f"{e_rho!r}: diff {abs(mean - e_rho)!r}")
+    if not (np.isfinite(mean) and abs(mean - e_rho) <= OPEN_DEPH_SE * se):
+        fail("open (d): the dephasing trajectories disagree with the master "
+             "equation")
+
+
+def _open_dense_mcwf(total, card):
+    """(e) The dense MCWF on the 10q ring, T1 0.1 on every qubit, 64
+    trajectories x 30 steps: K7 at d = 1024, B = 64 on M_eff, one launch
+    a step; the same draws on the recurrence in float64."""
+    import dataclasses
+
+    import torch
+    from diffquantum_tpu_torch.dynamics.lindblad import draw_mcwf, evolve_mcwf
+    ham, env, c, c64, T, n_steps = open_dense_problems()["ring_t1"]
+    n_traj = 64
+    psi0 = dense_problems()["ring"].psi0
+    coeff = _coeff(env.coeff_shape, 10)
+    draws = draw_mcwf(torch.Generator(device=DEVICE).manual_seed(5), n_steps,
+                      n_traj, c.ops.re.shape[0])
+    f64 = torch.float64
+    ham64 = dataclasses.replace(ham, dtype=f64, H0=ham.H0.astype(f64),
+                                Hs=ham.Hs.astype(f64))
+
+    def run(h, cs, cc, p0):
+        with torch.no_grad():
+            return evolve_mcwf(h, env, cc, p0, cs, 0.0, T, horizon=T,
+                               n_steps=n_steps, n_traj=n_traj, draws=draws)
+    got = _timed("(e) 64 trajectories on K7", lambda: _counted_path(
+        total, "open (e): evolve_mcwf, 10q ring, 64 trajectories x 30 steps "
+        "(K7 at d=1024, B=64)", {"k7_forward": n_steps},
+        lambda: run(ham, c, coeff, psi0)))
+    want = _counted_path(total, "open (e): the same draws in float64 (the "
+                         "recurrence)", {"apply_recurrence": n_steps},
+                         lambda: run(ham64, c64, coeff.double(),
+                                     psi0.astype(f64)))
+    err = max(float((got.re.double() - want.re).abs().max()),
+              float((got.im.double() - want.im).abs().max()))
+    apart = int(((got.re - got.re[:1]).abs().amax(-1) > 1e-3).sum())
+    log(f"open (e): K7 against float64 max abs {err!r} (atol "
+        f"{OPEN_K7_F64_ATOL}); {apart} of {n_traj} trajectories end apart "
+        f"from the first (the jumps)")
+    if not err <= OPEN_K7_F64_ATOL:
+        fail("open (e): the dense MCWF on K7 disagrees with float64")
+
+
+def _open_trajectory(total, card, n=16, n_steps=1000):
+    """(f) evolve_product_trajectory on the 16q ring, 1000 steps (1001
+    states, 0.5 GB): the endpoint against evolve_product_fused (K1) and
+    every state's norm."""
+    import torch
+    from diffquantum_tpu_torch.dynamics.product import (
+        evolve_product_fused, evolve_product_trajectory)
+    from diffquantum_tpu_torch.models import maxcut
+    prob = maxcut.build_maxcut(n, maxcut.ring_graph(n), n_basis=6,
+                               device=DEVICE)
+    coeff = _coeff(prob.envelope.coeff_shape, n)
+    args = (prob.ham, prob.envelope, coeff, prob.psi0, 0.0, prob.T)
+    kw = dict(horizon=prob.T, n_steps=n_steps)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        traj = _counted_path(total, f"open (f): {n}q product trajectory, "
+                             f"{n_steps} steps", {},
+                             lambda: evolve_product_trajectory(*args, **kw))
+        wall = time.perf_counter() - t0
+        ref = _counted_path(total, "open (f): its reference on K1",
+                            {"k1_forward": 1},
+                            lambda: evolve_product_fused(*args, **kw))
+    err = max(float((traj.re[-1] - ref.re).abs().max()),
+              float((traj.im[-1] - ref.im).abs().max()))
+    norms = (traj.re.double() ** 2 + traj.im.double() ** 2).sum(-1)
+    dn = float((norms - 1.0).abs().max())
+    dk = abs(float((ref.re.double() ** 2 + ref.im.double() ** 2).sum()) - 1)
+    log(f"open (f): {tuple(traj.shape)} states; endpoint against K1 max abs "
+        f"{err!r} (atol {OPEN_TRAJ_ATOL}); norms within {dn!r} of 1 (atol "
+        f"{OPEN_NORM_ATOL}; K1's endpoint {dk!r})")
+    log(f"time: open (f) {n}q product trajectory, {n_steps} steps, eager "
+        f"engine {wall * 1e3:.3f} ms [{card}]")
+    if not (err <= OPEN_TRAJ_ATOL and dn <= OPEN_NORM_ATOL):
+        fail("open (f): the product trajectory disagrees with K1 or loses "
+             "norm")
+
+
+def _open_ode(total, card):
+    """(g) evolve_ode (scipy DOP853 on the host) on the 4q dense ring
+    against 'expm' at 2000 midpoint steps, float64 on the card."""
+    import torch
+    from diffquantum_tpu_torch.dynamics.ode import evolve_ode
+    from diffquantum_tpu_torch.dynamics.propagator import evolve
+    from diffquantum_tpu_torch.models import maxcut
+    prob = maxcut.build_maxcut(4, maxcut.ring_graph(4), n_basis=4,
+                               dense=True, dtype=torch.float64, device=DEVICE)
+    coeff = torch.tensor(0.5 * np.random.default_rng(3).standard_normal(
+        prob.envelope.coeff_shape), dtype=torch.float64, device=DEVICE)
+    args = (prob.ham, prob.envelope, coeff, prob.psi0, 0.0, prob.T)
+    t0 = time.perf_counter()
+    ode = evolve_ode(*args, horizon=prob.T)
+    wall = time.perf_counter() - t0
+    ref = _counted_path(total, "open (g): 'expm', 2000 midpoint steps", {},
+                        lambda: evolve(*args, horizon=prob.T, n_steps=2000,
+                                       backend="expm", t_sample="mid"))
+    err = max(float((ode.re - ref.re).abs().max()),
+              float((ode.im - ref.im).abs().max()))
+    log(f"open (g): evolve_ode ({wall:.2f} s on the host) against 'expm' "
+        f"at 2000 midpoint steps max abs {err!r} (atol {OPEN_ODE_ATOL}); "
+        f"result on {ode.re.device} in {ode.re.dtype}")
+    if not (err <= OPEN_ODE_ATOL and ode.re.is_cuda):
+        fail("open (g): evolve_ode disagrees with the fine trotter chain")
+
+
+def _open_k2_times(card):
+    """K2 at the 'fused' MCWF step's shape (T = 1, one zero phase row and
+    one angle row, B = 8 at 16 qubits) beside its plain version and
+    bound."""
+    import torch
+    from diffquantum_tpu_torch.ops import fused_product as tfp
+    n, b = 16, 8
+    d = 2**n
+    prob, _, tx, qubits, kinds = maxcut_chain(n, 1, seed=n, members=1)
+    th = torch.zeros((1, 1, d), dtype=torch.float32, device=DEVICE)
+    psi = _random_cp(np.random.default_rng(16), (b, d), 1.0 / np.sqrt(2 * d))
+    plan = tfp._plan_ops(qubits, kinds, n)
+    with torch.no_grad():
+        out = tfp.fused_product_evolve_batched(psi, th, tx, qubits, n, kinds)
+    w = prob.measurement.diag
+    lam = type(out)(2.0 * w * out.re, 2.0 * w * out.im)
+    runs = {
+        "forward": (lambda: tfp._forward_cuda(psi.re, psi.im, th, tx, plan,
+                                              n),
+                    lambda: tfp.fused_product_evolve_batched_plain(
+                        psi, th, tx, qubits, n, kinds)),
+        "backward": (lambda: tfp._backward_cuda(out.re, out.im, lam.re,
+                                                lam.im, th, tx, plan, n),
+                     lambda: tfp._adjoint_batched_plain(
+                         out, lam, th, tx, qubits, n, kinds)),
+    }
+    for part, (kfn, pfn) in runs.items():
+        ms, plain_ms = cuda_ms(kfn, 200), cuda_ms(pfn, 5, 1)
+        bound = chain_bound(d, 1, kinds, part == "backward", members=b,
+                            rows=1)
+        log(f"time: k2_{part} [open (b): 16q T=1, B=8 on one zero phase row "
+            f"and one angle row] {ms!r} ms/launch, plain version "
+            f"{plain_ms!r} ms, bound {bound[0]!r} ms ({bound[1]}) [{card}]")
+
+
+def phase_open(total):
+    """Open-system dynamics, the adaptive-ODE engine and the product
+    trajectory through the entry points, at the JAX demo's sizes: (a) the
+    damped qubit's noise-aware control and its 2000 MCWF trajectories (K7
+    only), (b) T1-aware MaxCut at 16-17 qubits on K2 only, (c) the
+    structured master equation at 12, 14 and 3 qubits, (d) dephasing
+    trajectories at 12 (no kernel), (e) the dense MCWF at 10 qubits (K7
+    only), (f) the 16q product trajectory (K1 only, its reference), (g)
+    evolve_ode at 4 qubits (no kernel)."""
+    card = card_line()
+    for part in (_open_control, _open_mcwf_maxcut, _open_structured,
+                 _open_dephasing, _open_dense_mcwf, _open_trajectory,
+                 _open_ode):
+        t0 = time.perf_counter()
+        part(total, card)
+        log(f"open: {part.__name__} took {time.perf_counter() - t0:.1f} s")
+    _open_k2_times(card)
+
+
 def phase_slice_times():
     """time: lines of the slice's paths, with the card's name and power
     limit."""
@@ -3646,7 +4332,7 @@ def main():
     phase_dense_paths(launches)
     phase_sharded_paths(launches)
     for phase in (phase_strings, phase_channel, phase_sampled_frontier,
-                  phase_molecule):
+                  phase_molecule, phase_open):
         t_phase = time.perf_counter()
         phase(launches)
         log(f"time: {phase.__name__} took "

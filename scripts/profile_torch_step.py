@@ -2,7 +2,8 @@
 
     python3 scripts/profile_torch_step.py [--steps 50]
         [--path grad|seeds|mc|mc_seeds|fd|grad18|grad20|grad24|grad20hop|
-                grad10dense|demo_mc|tfim12|tfim20|mc20|mol12|mol20|all]
+                grad10dense|demo_mc|tfim12|tfim20|mc20|mol12|mol20|mcwf16|
+                lindblad12|all]
 
 Paths (the ring MaxCut, n_basis 6, 30 Strang steps; 12 qubits unless
 named):
@@ -30,7 +31,16 @@ named):
             Pauli strings, 66 drives, T 5, n_basis 8, 60 steps,
             ``t_sample='mid'``; chip_smoke.py's ``molecule_chain``): K1;
   mol20     the same on the H10 chain (20 qubits, 7151 strings, 114
-            drives, 60 steps): K6 (about a second a step: use --steps 5).
+            drives, 60 steps): K6 (about a second a step: use --steps 5);
+  mcwf16    one value and gradient of ``score_surrogate`` over
+            ``evolve_mcwf_structured(backend='fused')`` on the 16-qubit
+            ring (n_basis 4, T1 0.1 on every qubit, 8 trajectories, 10
+            steps, fresh draws each step): K2 forward and adjoint, one
+            launch each a step (the JAX demo's ``--mcwf-scale 16`` epoch
+            without the optimizer's update);
+  lindblad12 one value and gradient of ``evolve_lindblad_structured`` on
+            chip_smoke.py's ``open_structured_problem`` at 12 qubits (rho
+            2 x 2^24 floats, T 0.8, 8 steps): no kernel.
 A problem is built only for the paths asked for (the 24-qubit one takes
 the host tens of seconds).
 For each it runs the steps under ``torch.profiler`` and prints: the wall
@@ -54,7 +64,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PATHS = ("grad", "seeds", "mc", "mc_seeds", "fd", "grad18", "grad20",
          "grad24", "grad20hop", "grad10dense", "demo_mc", "tfim12", "tfim20",
-         "mc20", "mol12", "mol20")
+         "mc20", "mol12", "mol20", "mcwf16", "lindblad12")
 
 
 def make_run(name):
@@ -92,6 +102,42 @@ def make_run(name):
         return loop(lambda: energy_and_grad(
             mol.ham, mol.envelope, mol.measurement, mc, mol.psi0, mol.T, ms,
             t_sample="mid"))
+    if name == "mcwf16":
+        from chip_smoke import _coeff
+        from diffquantum_tpu_torch.dynamics.lindblad import (
+            StructuredNoise, evolve_mcwf_structured, score_surrogate)
+        prob = maxcut.build_maxcut(16, maxcut.ring_graph(16), n_basis=4,
+                                   dense=False)
+        noise = StructuredNoise(16, t1=[(q, 0.1) for q in range(16)])
+        cc = _coeff(prob.envelope.coeff_shape, 16, scale=0.3)
+        cc.requires_grad_(True)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+
+        def mcwf_step():
+            psis, logps = evolve_mcwf_structured(
+                prob.ham, prob.envelope, cc, prob.psi0, noise, 0.0, prob.T,
+                horizon=prob.T, n_steps=10, generator=gen, n_traj=8,
+                return_logp=True, backend="fused")
+            vals = torch.sum((psis.re ** 2 + psis.im ** 2)
+                             * prob.measurement.diag, dim=-1)
+            return torch.autograd.grad(score_surrogate(vals, logps), cc)
+        return loop(mcwf_step)
+    if name == "lindblad12":
+        from chip_smoke import open_structured_problem
+        from diffquantum_tpu_torch.dynamics.lindblad import (
+            evolve_lindblad_structured, expectation_rho)
+        from diffquantum_tpu_torch.ops.cpx import CP
+        ham, env, coeff, noise = open_structured_problem(12, torch.float32,
+                                                         seed=5)
+        d = 2**12
+        rho0 = CP(torch.full((d, d), 1.0 / d, device="cuda"),
+                  torch.zeros((d, d), device="cuda"))
+        w = torch.cos(torch.linspace(0, 7, d, device="cuda"))
+        cl = coeff.clone().requires_grad_(True)
+        return loop(lambda: torch.autograd.grad(expectation_rho(
+            w, evolve_lindblad_structured(ham, env, cl, rho0, noise, 0.0,
+                                          0.8, horizon=0.8, n_steps=8)),
+            cl))
     if name == "demo_mc":
         demo = maxcut.demo_problem()
         return lambda k: train_energy(

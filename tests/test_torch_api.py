@@ -22,22 +22,9 @@ import diffquantum_tpu_torch
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
-DYNAMICS = "The rest of the single-state dynamics"
-LINDBLAD = "dynamics/lindblad.py"
-
-# name -> the Queue 1 item that ports it
-STILL_TO_PORT = {
-    "diffquantum_tpu.dynamics": {
-        n: LINDBLAD for n in (
-            "CollapseSet", "StructuredNoise", "amplitude_damping",
-            "density_from_trajectories", "dephasing",
-            "evolve_dephasing_trajectories", "evolve_lindblad",
-            "evolve_lindblad_structured", "evolve_mcwf",
-            "evolve_mcwf_structured", "expectation_rho", "lindblad",
-            "score_surrogate")},
-    "diffquantum_tpu.dynamics.product": {
-        "evolve_product_trajectory": DYNAMICS},
-}
+# name -> the Queue 1 item that ports it (every public name of the shared
+# modules is ported)
+STILL_TO_PORT = {}
 
 
 def _package_names(mod) -> set:

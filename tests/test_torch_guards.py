@@ -59,7 +59,8 @@ def test_port_imports_no_jax():
             "models/vqe_h2.py", "parallel/comm.py",
             "parallel/sharded_state.py", "models/molecule.py",
             "utils/checkpointing.py", "utils/profiling.py",
-            "utils/plotting.py"} <= names
+            "utils/plotting.py", "dynamics/lindblad.py",
+            "dynamics/ode.py"} <= names
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
@@ -79,8 +80,11 @@ def no_card(monkeypatch):
 
 @pytest.mark.parametrize("entry", ["build_maxcut", "init_coeff", "convert",
                                    "measurement", "make_mesh", "build_h2_at",
-                                   "sector_fci_from_strings"])
+                                   "sector_fci_from_strings",
+                                   "collapse_set"])
 def test_entry_points_need_a_card_unless_asked(no_card, entry):
+    from diffquantum_tpu_torch.dynamics.lindblad import (CollapseSet,
+                                                         amplitude_damping)
     from diffquantum_tpu_torch.models import molecule
     env = SimpleEnvelope(basis="bspline", n_basis=4, omegas=(1.0,))
     call = {
@@ -93,6 +97,8 @@ def test_entry_points_need_a_card_unless_asked(no_card, entry):
         "build_h2_at": lambda: molecule.build_h2_at(0.7414),
         "sector_fci_from_strings": lambda: molecule.sector_fci_from_strings(
             [("ZZ", 1.0)], 2, 1),
+        "collapse_set": lambda: CollapseSet.create(
+            [amplitude_damping(0.1, 0, 1)]),
     }[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
@@ -175,6 +181,95 @@ def test_unported_features_raise(what):
     }[what]
     with pytest.raises(error, match=match):
         call()
+
+
+def _open_problem(n, hop=False, t1=True, dense=False):
+    """(ham, envelope, coeff, psi0, rho0, noise) of an open-system problem
+    on the CPU: a ZZ coupler and an X drive (``_ham``'s terms); rho0 up to
+    6 qubits."""
+    from diffquantum_tpu_torch.dynamics.lindblad import StructuredNoise
+    d = 2**n
+    ham = _ham(n, hop=hop)
+    if dense:
+        hs = [np.diag(linalg.zz_diagonal(n, 0, 1)),
+              linalg.op_on_qubits(linalg.X, [0], n)]
+        ham = tham.ControlledHamiltonian.create(np.zeros((d, d)), hs,
+                                                device="cpu")
+    env = SimpleEnvelope(basis="bspline", n_basis=4,
+                         omegas=(1.0,) * ham.n_controls)
+    psi0 = CP(torch.full((d,), d ** -0.5), torch.zeros(d))
+    rho0 = CP(torch.full((d, d), 1.0 / d), torch.zeros((d, d))) \
+        if n <= 6 else None
+    noise = StructuredNoise(n, t1=[(0, 0.1)] if t1 else [],
+                            dephasing=[(1, 0.2)])
+    return ham, env, torch.zeros(env.coeff_shape), psi0, rho0, noise
+
+
+@pytest.mark.parametrize("n", [9, 18])
+def test_fused_mcwf_raises_outside_the_k2_band(n):
+    """backend='fused' runs K2 at 10-17 qubits and raises outside, naming
+    the band; it never runs 'xla' in its place."""
+    from diffquantum_tpu_torch.dynamics.lindblad import evolve_mcwf_structured
+    ham, env, c, psi0, _, noise = _open_problem(n)
+    with pytest.raises(ValueError, match="10-17 qubits"):
+        evolve_mcwf_structured(ham, env, c, psi0, noise, 0.0, 1.0,
+                               horizon=1.0, n_steps=2,
+                               generator=torch.Generator(), n_traj=2,
+                               backend="fused")
+
+
+@pytest.mark.parametrize("entry", ["lindblad_structured", "dephasing",
+                                   "mcwf_structured"])
+def test_open_system_engines_refuse_hops(entry):
+    from diffquantum_tpu_torch.dynamics import lindblad as tlb
+    ham, env, c, psi0, rho0, noise = _open_problem(3, hop=True, t1=False)
+    kw = dict(horizon=1.0, n_steps=2)
+    call = {
+        "lindblad_structured": lambda: tlb.evolve_lindblad_structured(
+            ham, env, c, rho0, noise, 0.0, 1.0, **kw),
+        "dephasing": lambda: tlb.evolve_dephasing_trajectories(
+            ham, env, c, psi0, noise, 0.0, 1.0, generator=torch.Generator(),
+            n_traj=2, **kw),
+        "mcwf_structured": lambda: tlb.evolve_mcwf_structured(
+            ham, env, c, psi0, noise, 0.0, 1.0, generator=torch.Generator(),
+            n_traj=2, **kw),
+    }[entry]
+    with pytest.raises(ValueError, match="'hop'"):
+        call()
+
+
+def test_dephasing_trajectories_refuse_t1():
+    from diffquantum_tpu_torch.dynamics.lindblad import \
+        evolve_dephasing_trajectories
+    ham, env, c, psi0, _, noise = _open_problem(3)
+    with pytest.raises(ValueError, match="dephasing only"):
+        evolve_dephasing_trajectories(ham, env, c, psi0, noise, 0.0, 1.0,
+                                      horizon=1.0, n_steps=2,
+                                      generator=torch.Generator(), n_traj=2)
+
+
+@pytest.mark.parametrize("entry", ["evolve_lindblad", "evolve_mcwf",
+                                   "evolve_ode"])
+def test_dense_only_entry_points_refuse_a_structured_hamiltonian(entry):
+    from diffquantum_tpu_torch.dynamics import lindblad as tlb
+    from diffquantum_tpu_torch.dynamics.ode import evolve_ode
+    ham, env, c, psi0, rho0, noise = _open_problem(3)
+    dense = _open_problem(3, dense=True)[0]
+    assert not dense.is_structured_only
+    cs = tlb.CollapseSet.create(noise.dense_collapse_ops(), device="cpu")
+    kw = dict(horizon=1.0, n_steps=2)
+    call = {
+        "evolve_lindblad": lambda h: tlb.evolve_lindblad(
+            h, env, c, rho0, cs, 0.0, 1.0, **kw),
+        "evolve_mcwf": lambda h: tlb.evolve_mcwf(
+            h, env, c, psi0, cs, 0.0, 1.0, generator=torch.Generator(),
+            n_traj=2, **kw),
+        "evolve_ode": lambda h: evolve_ode(h, env, c, psi0, 0.0, 1.0,
+                                           horizon=1.0),
+    }[entry]
+    with pytest.raises(ValueError, match="dense operators"):
+        call(ham)
+    call(dense)  # the dense twin runs
 
 
 @pytest.mark.parametrize("entry", ["mc_energy_grad", "mc_energy_grad_batch",

@@ -1,21 +1,16 @@
-"""The MC and FD estimators' 18-24 qubit paths of the PyTorch port, on
-the CPU at 10 qubits: the MC samples one after another ('map') against
-all samples on the batch axis ('vmap') and against the JAX package's
-single samples; the router forced onto the packed engines (K3 'packed'
-and K5 'mega' plain paths), as tests/test_torch_frontier.py forces it,
-where 'auto' runs the samples one after another and the per-member
-time-grid refusal still stands; FD's chunked evaluation (chunks of 1, 7
-and all members) against one batch, and its chunk size from the card's
-free memory.
+"""The MC estimator's 18-24 qubit paths of the PyTorch port, on the CPU
+at 10 qubits: the MC samples one after another ('map') against all
+samples on the batch axis ('vmap') and against the JAX package's single
+samples; the router forced onto the packed engines (K3 'packed' and K5
+'mega' plain paths), as tests/test_torch_frontier.py forces it, where
+'auto' runs the samples one after another and the per-member time-grid
+refusal still stands. The trainers on the forced route and FD's chunks
+are in ``test_torch_sampled_frontier_train.py``.
 
 Tolerances: float64 eager 'map' against 'vmap' 1e-12 of the max-norm
 (the same arithmetic, one sample at a time); float32 packed routes
 against the float64 eager engine or JAX's float32 eager engine 1e-4 of
-the max-norm, as tests/test_torch_frontier.py; FD chunks against one
-batch 1e-13 absolute in float64 and 1e-6 in float32 (each member's
-arithmetic is its own; a batched product may block differently)."""
-import types
-
+the max-norm, as tests/test_torch_frontier.py."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,31 +20,10 @@ import torch
 from diffquantum_tpu.gradients import mc as jmc
 from diffquantum_tpu.models import maxcut as jmaxcut
 from diffquantum_tpu_torch.dynamics import product as tprod
-from diffquantum_tpu_torch.gradients import fd as tfd
 from diffquantum_tpu_torch.gradients import mc as tmc
-from diffquantum_tpu_torch.models import maxcut as tmaxcut
 from diffquantum_tpu_torch.ops.cpx import CP
-from diffquantum_tpu_torch.parallel import train_energy_seeds as t_seeds
-from diffquantum_tpu_torch.train.config import TrainConfig as TConfig
-from diffquantum_tpu_torch.train.energy import train_energy as t_train
-
-N = 10
-KW = dict(n_basis=4, omega0=2 * np.pi, omega1=2 * np.pi)  # T = 1
-
-
-def _rel_close(got, want, rel):
-    scale = max(float(np.max(np.abs(want))), 1e-30)
-    np.testing.assert_allclose(got, want, rtol=0, atol=rel * scale)
-
-
-def _problem(dtype=torch.float64):
-    return tmaxcut.build_maxcut(N, tmaxcut.ring_graph(N), dense=False,
-                                dtype=dtype, device="cpu", **KW)
-
-
-def _coeffs(shape, seed, lead=()):
-    return 0.5 * np.random.default_rng(seed).standard_normal(
-        tuple(lead) + tuple(shape))
+from torch_estimators_common import KW, N, _coeffs, _problem, _rel_close
+from torch_estimators_common import forced  # noqa: F401 (fixture)
 
 
 @pytest.mark.parametrize("layout", ["shared", "per_sample"])
@@ -73,16 +47,6 @@ def test_map_equals_vmap_on_the_eager_engine(layout):
     assert tmc._mc_sample_mode(tp.ham, "auto") == "vmap"
     with pytest.raises(ValueError, match="sample_mode"):
         tmc.mc_grads_per_sample(*args, sample_mode="scan")
-
-
-@pytest.fixture(params=["packed", "mega"])
-def forced(request, monkeypatch):
-    """The port's router sent to K3 ('packed') or K5 ('mega') at 10
-    qubits (their plain paths on the CPU)."""
-    monkeypatch.setattr(tprod, "_PACKED_MIN_QUBITS", 0)
-    if request.param == "mega":
-        monkeypatch.setattr(tprod, "_VMEM_PACKED_MAX", N - 1)
-    return request.param
 
 
 def test_mc_on_the_forced_route(forced):
@@ -127,75 +91,3 @@ def test_per_member_grid_refusal_kept(forced):
     with pytest.raises(NotImplementedError, match="sample_mode='map'"):
         tprod.packed_chain_inputs(tp.ham, tp.envelope, c,
                                   torch.tensor([0.0, 0.1]), tp.T, tp.T, 4)
-
-
-def test_trainers_on_the_forced_route(forced):
-    """train_energy and train_energy_seeds in MC mode on the packed
-    route against the same runs on the eager engine (same generator
-    streams, so the same split times)."""
-    tp = _problem(torch.float32)
-    init = torch.tensor(_coeffs(tp.envelope.coeff_shape, 4, (2,)),
-                        dtype=torch.float32)
-    cfg = TConfig(n_basis=4, n_epoch=2, lr=5e-2, grad_mode="mc", n_step=6,
-                  per_step=4, mc_samples=2, mc_strategy="stratified")
-    runs = [t_seeds(tp.ham, tp.envelope, tp.measurement, tp.psi0, tp.T,
-                    cfg.replace(backend=b), n_seeds=2, init_coeffs=init)
-            for b in ("product_fused", "product")]
-    assert runs[0].losses.shape == (2, 2)
-    np.testing.assert_allclose(runs[0].losses, runs[1].losses, rtol=0,
-                               atol=5e-5)
-    np.testing.assert_allclose(runs[0].coeffs.numpy(),
-                               runs[1].coeffs.numpy(), rtol=0, atol=1e-4)
-    one = [t_train(tp.ham, tp.envelope, tp.measurement, tp.psi0, tp.T,
-                   cfg.replace(backend=b, mc_samples=1), init_coeff=init[0])
-           for b in ("product_fused", "product")]
-    np.testing.assert_allclose(one[0].losses_raw, one[1].losses_raw, rtol=0,
-                               atol=5e-5)
-
-
-@pytest.mark.parametrize("dtype,atol", [(torch.float64, 1e-13),
-                                        (torch.float32, 1e-6)])
-def test_fd_chunks_equal_one_batch(dtype, atol, monkeypatch):
-    """fd_energies in chunks of 1, 7 and all members, member for member,
-    and fd_energy_grad's quotients from chunks of 7 against its own (one
-    batch off the card); float32 on the forced K5 route."""
-    if dtype == torch.float32:
-        monkeypatch.setattr(tprod, "_PACKED_MIN_QUBITS", 0)
-        monkeypatch.setattr(tprod, "_VMEM_PACKED_MAX", N - 1)
-    tp = _problem(dtype)
-    c = torch.tensor(_coeffs(tp.envelope.coeff_shape, 5), dtype=dtype)
-    rng = np.random.default_rng(6)
-    all_c = c[None] + torch.tensor(0.1 * rng.standard_normal(
-        (11,) + tp.envelope.coeff_shape), dtype=dtype)
-    backend = "product_fused" if dtype == torch.float32 else "product"
-    args = (tp.ham, tp.envelope, tp.measurement, all_c, tp.psi0, tp.T,
-            None, 5)
-    whole = tfd.fd_energies(*args, 11, backend=backend)
-    assert whole.shape == (11,)
-    for chunk in (1, 7):
-        np.testing.assert_allclose(
-            tfd.fd_energies(*args, chunk, backend=backend).numpy(),
-            whole.numpy(), rtol=0, atol=atol)
-    gargs = (tp.ham, tp.envelope, tp.measurement, c, tp.psi0, tp.T, None, 5)
-    one_batch = tfd.fd_energy_grad(*gargs, backend=backend)
-    monkeypatch.setattr(tfd, "fd_chunk_size", lambda ham, m, dev: 7)
-    np.testing.assert_allclose(
-        tfd.fd_energy_grad(*gargs, backend=backend).numpy(),
-        one_batch.numpy(), rtol=0, atol=atol / 1e-3)
-
-
-def test_fd_chunk_size_from_free_memory(monkeypatch):
-    """The chunk: every member below 18 qubits and off the card; from 18
-    qubits up what half the card's free memory holds at six state pairs
-    a member (the 24q ring's 576 members on 78 GB free: 48 a chunk, 12
-    chunks; the 20q ring's 480 fit at once)."""
-    free = 78 * 10**9
-    monkeypatch.setattr(torch.cuda, "mem_get_info",
-                        lambda device=None: (free, 80 * 10**9))
-    ham = lambda n: types.SimpleNamespace(n_qubits=n, dim=2**n)  # noqa
-    assert tfd.fd_chunk_size(ham(24), 576, "cpu") == 576
-    assert tfd.fd_chunk_size(ham(17), 576, "cuda") == 576
-    chunk = tfd.fd_chunk_size(ham(24), 576, "cuda")
-    assert chunk == int(0.5 * free) // (6 * 8 * 2**24) == 48
-    assert -(-576 // chunk) == 12
-    assert tfd.fd_chunk_size(ham(20), 480, "cuda") == 480
