@@ -120,6 +120,19 @@ at the first phase that does not hold:
       B = 64) against the same draws in float64; (f) the 16q product
       trajectory, 1000 steps, against K1; (g) evolve_ode at 4 qubits
       against 'expm';
+   n. the reference-API facades, the native engine and the GPU demos
+      (phase_compat): (a) ``compat.diffqc`` on the card in float64 against
+      the port's native C++ engine (built here with the host's c++) on
+      the 2-qubit three-channel system and the 10q dense ring with one
+      carrier channel a control (no K7: float64 takes the recurrence);
+      (b) the reference's demo_maxcut.py line for line through
+      ``SimulatorPlain`` (202 MC epochs, K7 on the 16 branches, the max
+      cut 0101/1010); (c) the facade on the 10q dense ring (3 MC epochs,
+      K7 at d = 1024, B = 40); (d) ``train_fidelity`` and
+      ``train_energy_FD``; (e) the host algorithms (closures, MC, FD) on
+      the card against the CPU at the same seed and ``trotter`` against
+      the native engine; (f) the nine ``demos_torch`` scripts in process
+      at their default sizes with the epochs cut;
    each checked against the eager Strang engine on the card
    (``backend='product'``) or the adjoint gradient, with the limits
    named below;
@@ -145,6 +158,10 @@ at the first phase that does not hold:
    H10's grad step and its split); phase_open's (K2 at its T = 1 shape,
    the 16q T1-aware epoch at 8 and 128 trajectories, the structured
    master equation at 12 and 14 qubits, the product trajectory);
+   phase_compat's, on the host's clock (the 10q float64 diffqc.trotter
+   on the card against the native engine on the host, the reference
+   demo's 202 epochs through SimulatorPlain, the facade's 10q trotter on
+   the card and on the CPU);
 5. a JSON line of per-kernel numbers, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -4256,6 +4273,350 @@ def phase_open(total):
     _open_k2_times(card)
 
 
+COMPAT_NATIVE_ATOL = 1e-9  # diffqc (float64, card) against the native engine
+COMPAT_HOST_REL = 1e-9     # host algorithms: card against CPU, same draws
+COMPAT_VQE_MHA = 1.6       # chemical accuracy, the VQE demo's healthy line
+
+
+def _compat_ring_ops(n):
+    """The ring MaxCut's dense operators on the host: H0 = 0, ZZ on every
+    edge and X on every qubit (the 10q dense ring's 20 controls)."""
+    from diffquantum_tpu_torch.models import maxcut
+    from diffquantum_tpu_torch.ops import linalg
+    hs = [np.diag(linalg.zz_diagonal(n, i, j)).astype(np.complex128)
+          for i, j in maxcut.ring_graph(n)]
+    hs += [linalg.op_on_qubits(linalg.X, [q], n) for q in range(n)]
+    return np.zeros((2**n, 2**n), np.complex128), hs
+
+
+def _compat_diffqc(total, card, tmp):
+    """(a) ``diffqc.set_H`` / ``trotter`` on the card in float64 against
+    the port's native C++ engine, built here on the host: the JAX tests'
+    2-qubit three-channel system at func_type 0 and 1, and the 10q dense
+    ring with one carrier channel a control (per_step 10, T = 2: 30
+    steps; the plain recurrence from d = 512, so no K7)."""
+    from diffquantum_tpu_torch.compat import diffqc
+    from diffquantum_tpu_torch.native import bindings
+    from diffquantum_tpu_torch.ops import linalg
+    t0 = time.perf_counter()
+    lib = bindings.build()
+    native = bindings.NativeSystem()
+    log(f"compat (a): native engine {lib.name} built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s (version {bindings.version()})")
+    rng = np.random.default_rng(0)
+    two = (0.2 * linalg.pauli_string("ZI"),
+           [linalg.pauli_string("XI"), linalg.pauli_string("IX")],
+           [[[0.0, np.pi, 5.0, 0], [0.0, 0.5 * np.pi, 9.0, 1]],
+            [[0.0, np.pi, 4.0, 2]]], 2.0, rng.standard_normal((2, 3, 5)) * 0.7,
+           linalg.uniform_superposition(2))
+    h0, hs = _compat_ring_ops(10)
+    ring = (h0, hs, [[[0.0, np.pi, 0.3 * k, k]] for k in range(len(hs))], 2.0,
+            0.5 * rng.standard_normal((2, len(hs), 6)),
+            linalg.uniform_superposition(10))
+    for label, system, func_type, want in (
+            ("2q three-channel", two, 0, {}),
+            ("2q three-channel", two, 1, {}),
+            ("10q dense ring, 20 channels", ring, 1,
+             {"apply_recurrence": 30})):
+        H0, Hs, channels, duration, vv, psi0 = system
+        diffqc.set_H(H0, Hs, channels, duration, func_type, device=DEVICE)
+        t0 = time.perf_counter()
+        got = np.asarray(_counted_path(
+            total, f"compat (a): diffqc.trotter, {label}, func_type "
+            f"{func_type}", want, lambda: diffqc.trotter(
+                psi0, 0.0, duration, 10, vv)))
+        t_card = time.perf_counter() - t0
+        native.set_system(H0, Hs, [(h,) + tuple(r[1:]) for h, rows in
+                                   enumerate(channels) for r in rows],
+                          duration, func_type)
+        t0 = time.perf_counter()
+        ref = native.trotter(psi0, 0.0, duration, 10, vv)
+        t_native = time.perf_counter() - t0
+        err = float(np.abs(got - ref).max())
+        log(f"compat (a): {label}, func_type {func_type}: diffqc on the card "
+            f"against the native engine max abs {err!r} (atol "
+            f"{COMPAT_NATIVE_ATOL}); norm {float(np.linalg.norm(got))!r}")
+        if not (np.all(np.isfinite(got)) and err <= COMPAT_NATIVE_ATOL):
+            fail(f"compat (a): diffqc.trotter ({label}) disagrees with the "
+                 f"native engine")
+    log(f"time: compat (a) 10q diffqc.trotter float64, 30 steps: on the card "
+        f"{t_card * 1e3:.1f} ms (first call, host table build included); "
+        f"native engine on the host {t_native * 1e3:.1f} ms [{card}]")
+    t0 = time.perf_counter()
+    diffqc.trotter(psi0, 0.0, duration, 10, vv)
+    log(f"time: compat (a) 10q diffqc.trotter float64, second call "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms [{card}]")
+
+
+def _facade(tmp, **kw):
+    """A SimulatorPlain on the card (its logger's echo kept out of this
+    script's output)."""
+    from diffquantum_tpu_torch.compat import SimulatorPlain
+    return _quiet(lambda: SimulatorPlain(log_dir=tmp, **kw))[0]
+
+
+def _compat_reference_demo(tmp):
+    """The reference's demo_maxcut.py through the facade, line for line
+    (SURVEY.md 3.1, C17): returns (sim, H_cost, H0, Hs, superposition)."""
+    from diffquantum_tpu_torch.ops import linalg
+    sim = _facade(tmp, lr=2e-2, n_basis=6, n_epoch=202, device=DEVICE)
+    n_qubit = 4
+    graph = [[0, 1], [0, 3], [1, 2], [2, 3]]
+    I, Z, X = linalg.I2, linalg.Z, linalg.X
+    II = sim.multi_kron(*[I] * n_qubit)
+    H_cost = II * 0.0
+    sim.Pauli_M = []
+    for e in graph:
+        curr = sim.multi_kron(*[Z if j in e else I for j in range(n_qubit)])
+        evals, estates = np.linalg.eigh(curr)
+        sim.Pauli_M.append([curr, 0.5, (evals, list(estates.T))])
+        H_cost = H_cost + II - curr
+    H_cost = -H_cost * 0.5
+    evals, estates = np.linalg.eigh(II)
+    sim.Pauli_M.append([II, -0.5 * len(graph), (evals, list(estates.T))])
+    omega0 = omega1 = np.pi
+    Hs, omegas = [], []
+    for e in graph:
+        Hs.append(sim.multi_kron(*[Z if j in e else I
+                                   for j in range(n_qubit)]))
+        omegas.append(omega0)
+    for q in range(n_qubit):
+        Hs.append(sim.multi_kron(*[X if j == q else I
+                                   for j in range(n_qubit)]))
+        omegas.append(omega1)
+    sim.omegas = omegas
+    sim.T = np.pi * (1.0 / omega0 + 1.0 / omega1)
+    superposition = linalg.uniform_superposition(n_qubit)
+    return sim, H_cost, II * 0.0, Hs, superposition, graph
+
+
+def _cut(graph, state, n):
+    return float(sum(((state >> (n - 1 - i)) & 1) != ((state >> (n - 1 - j))
+                                                      & 1) for i, j in graph))
+
+
+def _quiet(fn):
+    """fn() with its standard output (the loggers' epoch lines) kept out
+    of this script's."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return out, buf.getvalue()
+
+
+def _compat_facade(total, card, tmp):
+    """(b)-(d): the reference demo through SimulatorPlain (202 MC epochs,
+    K7 on the 16 branches), the facade at full width (the 10q dense ring,
+    3 epochs, K7 at d = 1024, B = 40), train_fidelity and
+    train_energy_FD."""
+    import torch
+    from diffquantum_tpu_torch.dynamics.propagator import reference_n_steps
+    from diffquantum_tpu_torch.ops import linalg
+    sim, M, H0, Hs, psi0, graph = _compat_reference_demo(tmp)
+    t0 = time.perf_counter()
+    coeff, _ = _counted_path(
+        total, "compat (b): SimulatorPlain.train_energy, the reference demo, "
+        "202 MC epochs", {"k7_forward": sim.n_epoch * sim.n_step},
+        lambda: _quiet(lambda: sim.train_energy(M, H0, Hs, psi0)))
+    wall = time.perf_counter() - t0
+    state, prob = sim.find_state(sim.final_state)
+    cut = _cut(graph, state, 4)
+    losses = sim.losses_energy
+    log(f"compat (b): reference demo through the facade: cut result is "
+        f"{state:04b}, cut value {cut} / max cut 4.0; loss gap {losses[0]!r} "
+        f"-> {losses[-1]!r}; coefficients {tuple(coeff.shape)} on "
+        f"{coeff.device}, requires_grad {coeff.requires_grad}")
+    log(f"time: compat (b) the reference demo, 202 epochs through "
+        f"SimulatorPlain.train_energy {wall:.3f} s [{card}]")
+    if not (state in (0b0101, 0b1010) and cut == 4.0
+            and losses[-1] < losses[0] and coeff.requires_grad):
+        fail("compat (b): the reference demo through the facade did not "
+             "read out the max cut 0101/1010 with a falling loss")
+
+    h0, hs = _compat_ring_ops(10)
+    cost = np.zeros(1024)
+    for i, j in [(i, (i + 1) % 10) for i in range(10)]:
+        cost += -0.5 * (1.0 - linalg.zz_diagonal(10, i, j))
+    big = _facade(tmp, lr=2e-2, n_basis=6, n_epoch=3, device=DEVICE)
+    big.omegas, big.T = [np.pi] * 20, 2.0
+    steps = reference_n_steps(big.per_step, 0.0, big.T)
+    t0 = time.perf_counter()
+    _counted_path(
+        total, "compat (c): SimulatorPlain.train_energy, 10q dense ring, "
+        "3 MC epochs", {"k7_forward": big.n_epoch * (steps + 2 * big.n_step)
+                        + steps},
+        lambda: _quiet(lambda: big.train_energy(
+            np.diag(cost), h0, hs, linalg.uniform_superposition(10))))
+    losses = big.losses_energy
+    log(f"compat (c): 10q dense ring through the facade (20 controls, MC "
+        f"branches B = 40 on K7 at d = 1024), 3 epochs in "
+        f"{time.perf_counter() - t0:.2f} s (host build included): gap "
+        f"{losses!r}")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail("compat (c): the 10q facade's loss did not fall over 3 epochs")
+
+    fid = _facade(tmp, lr=1e-1, n_basis=6, n_epoch=3, device=DEVICE)
+    fid.omegas, fid.T = [np.pi, np.pi], 2.0
+    steps = reference_n_steps(fid.per_step, 0.0, fid.T)
+    _counted_path(
+        total, "compat (d): SimulatorPlain.train_fidelity, |0> -> |1>, 3 "
+        "epochs", {"k7_forward": fid.n_epoch * fid.n_step + steps},
+        lambda: _quiet(lambda: fid.train_fidelity(
+            0.5 * linalg.Z, [linalg.X, linalg.Y], [linalg.basis_state(0, 2)],
+            [linalg.basis_state(1, 2)])))
+    fids = np.abs(fid.final_state[:, 1]) ** 2
+    log(f"compat (d): train_fidelity 3 MC epochs, infidelity "
+        f"{fid.losses_energy!r}, final fidelity {fids.tolist()!r}")
+    sim.n_epoch = 3
+    sim.spectral_coeff = None
+    _counted_path(
+        total, "compat (d): SimulatorPlain.train_energy_FD, the reference "
+        "demo, 3 epochs ('expm': 96 single-state groups)", {},
+        lambda: _quiet(lambda: sim.train_energy_FD(M, H0, Hs, psi0)))
+    log(f"compat (d): train_energy_FD 3 epochs, gap {sim.losses_energy!r}")
+    if not (np.all(np.isfinite(fid.losses_energy))
+            and np.all(np.isfinite(sim.losses_energy))
+            and sim.losses_energy[-1] < sim.losses_energy[0]
+            and torch.isfinite(sim.spectral_coeff).all()):
+        fail("compat (d): train_fidelity / train_energy_FD not finite, or "
+             "the FD loss did not fall")
+
+
+def _compat_host(total, card, tmp):
+    """(e) The host algorithms on the card against the same calls with
+    device='cpu' at the same seed: ``trotter`` with ``generate_u``
+    closures at 10 qubits (also against the native engine's
+    trotter_simple), ``compute_energy_grad_MC`` / ``_FD`` on the
+    reference demo with noise on."""
+    from diffquantum_tpu_torch.native import bindings
+    from diffquantum_tpu_torch.ops import linalg
+    h0, hs = _compat_ring_ops(10)
+    psi0 = linalg.uniform_superposition(10)
+    c = 0.5 * np.random.default_rng(10).standard_normal((20, 6))
+    outs = {}
+    for dev in (DEVICE, "cpu"):
+        s = _facade(tmp, n_basis=6, device=dev)
+        s.omegas, s.T = [np.pi] * 20, 2.0
+        H = [h0] + [[hs[i], s.generate_u(i, c)] for i in range(20)]
+        t0 = time.perf_counter()
+        if dev == DEVICE:
+            outs[dev] = _counted_path(
+                total, "compat (e): SimulatorPlain.trotter, 10q, generate_u "
+                "closures (float64: the plain recurrence)",
+                {"apply_recurrence": 30}, lambda: s.trotter(H, psi0, 0, s.T))
+        else:
+            outs[dev] = s.trotter(H, psi0, 0, s.T)
+        log(f"time: compat (e) 10q facade trotter on {dev} (30 steps, 600 "
+            f"closure calls) {(time.perf_counter() - t0) * 1e3:.1f} ms "
+            f"[{card}]")
+    native = bindings.NativeSystem()
+    native.set_system(h0, hs, [], 2.0, 1)
+    t0 = time.perf_counter()
+    ref = native.trotter_simple(psi0, 0.0, 2.0, 10, c, [np.pi] * 20,
+                                "bspline")
+    log(f"time: compat (e) 10q native trotter_simple on the host "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms [{card}]")
+    errs = (float(np.abs(outs[DEVICE] - outs["cpu"]).max()),
+            float(np.abs(outs[DEVICE] - ref).max()))
+    log(f"compat (e): 10q trotter with closures, card against CPU max abs "
+        f"{errs[0]!r}, against native trotter_simple {errs[1]!r} (atol "
+        f"{COMPAT_NATIVE_ATOL})")
+    if not max(errs) <= COMPAT_NATIVE_ATOL:
+        fail("compat (e): the facade's trotter on the card disagrees with "
+             "the CPU or the native engine")
+    grads = {}
+    for dev in (DEVICE, "cpu"):
+        sim, M, H0, Hs, psi, _ = _compat_reference_demo(tmp)
+        s = _facade(tmp, n_basis=6, seed=5, is_noisy=True, device=dev)
+        s.omegas, s.T, s.Pauli_M = sim.omegas, sim.T, sim.Pauli_M
+        s.spectral_coeff = 0.3 * np.random.default_rng(4).standard_normal(
+            (8, 6))
+        H = [H0] + [[Hs[i], s.generate_u(i, s.spectral_coeff)]
+                    for i in range(8)]
+        def run(s=s, H=H, M=M, psi=psi):
+            return [s.compute_energy_grad_MC(M, H, psi),
+                    s.compute_energy_grad_MC(M, H, psi),
+                    s.compute_energy_grad_FD(M, H, psi)]
+        grads[dev] = _counted_path(
+            total, "compat (e): two MC gradients and the FD gradient, 4q "
+            "demo ('expm')", {}, run) if dev == DEVICE else run()
+    errs = [rel_err(g.detach().cpu(), h.detach())
+            for g, h in zip(grads[DEVICE], grads["cpu"])]
+    log(f"compat (e): 4q demo, noisy, seed 5: two MC gradients and the FD "
+        f"gradient, card against CPU relative max diff {errs!r} (limit "
+        f"{COMPAT_HOST_REL}); MC max-norm "
+        f"{float(grads['cpu'][0].detach().abs().max())!r}")
+    if not max(errs) <= COMPAT_HOST_REL:
+        fail("compat (e): the host algorithms on the card disagree with the "
+             "CPU at the same seed")
+
+
+# demo -> (argv at its default size with epochs cut, launches)
+COMPAT_DEMOS = {
+    "maxcut": (["--epochs", "202"], {}),
+    "maxcut_seeds": (["--epochs", "5"], {"k2_forward": 5, "k2_backward": 5}),
+    "vqe_h2": ([], {}),
+    "control": (["--epochs", "20"], {"k7_forward": 30}),
+    "tfim": (["--epochs", "5"], {"k1_forward": 6, "k1_backward": 5}),
+    "h2_dissociation": (["--epochs", "5"], {}),
+    "hydrogen_chain": (["--epochs", "3"], {}),
+    "channel_control": (["--epochs", "5"], {}),
+    "open_control": (["--epochs", "20"], {"k7_forward": 60}),
+}
+
+
+def _compat_demos(total, card, tmp):
+    """(f) Each demos_torch script's main() on the card in process, at its
+    default size with the epochs cut; the 4q MaxCut reads out the max cut
+    and the VQE H2 error is below chemical accuracy."""
+    import importlib.util
+    cwd = os.getcwd()
+    os.chdir(tmp)  # the loggers write under ./logs
+    try:
+        for name, (argv, want) in COMPAT_DEMOS.items():
+            spec = importlib.util.spec_from_file_location(
+                f"demos_torch_{name}",
+                os.path.join(ROOT, "demos_torch", f"demo_{name}.py"))
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            t0 = time.perf_counter()
+            out, text = _counted_path(
+                total, f"compat (f): demos_torch/demo_{name}.py "
+                f"{' '.join(argv)}", want,
+                lambda: _quiet(lambda: mod.main(argv)))
+            last = [ln for ln in text.splitlines() if ln.strip()][-1]
+            log(f"compat (f): demo_{name} {' '.join(argv)} took "
+                f"{time.perf_counter() - t0:.2f} s; last line: {last}")
+            if name == "maxcut" and out["cut"] != 4.0:
+                fail(f"compat (f): demo_maxcut read out cut {out['cut']}, "
+                     "not 4.0")
+            if name == "vqe_h2" and not abs(out["error_mha"]) < \
+                    COMPAT_VQE_MHA:
+                fail(f"compat (f): demo_vqe_h2 error {out['error_mha']} mHa")
+    finally:
+        os.chdir(cwd)
+
+
+def phase_compat(total):
+    """The reference-API facades, the native engine and the GPU demos:
+    (a) diffqc on the card against the native engine (K7 0), (b) the
+    reference demo through SimulatorPlain (K7 202 x n_step), (c) the
+    facade on the 10q dense ring (K7 at d = 1024, B = 40), (d)
+    train_fidelity and train_energy_FD, (e) the host algorithms on the
+    card against the CPU, (f) the nine demos_torch scripts."""
+    import tempfile
+    card = card_line()
+    with tempfile.TemporaryDirectory() as tmp:
+        for part in (_compat_diffqc, _compat_facade, _compat_host,
+                     _compat_demos):
+            t0 = time.perf_counter()
+            part(total, card, tmp)
+            log(f"compat: {part.__name__} took "
+                f"{time.perf_counter() - t0:.1f} s")
+
+
 def phase_slice_times():
     """time: lines of the slice's paths, with the card's name and power
     limit."""
@@ -4332,7 +4693,7 @@ def main():
     phase_dense_paths(launches)
     phase_sharded_paths(launches)
     for phase in (phase_strings, phase_channel, phase_sampled_frontier,
-                  phase_molecule, phase_open):
+                  phase_molecule, phase_open, phase_compat):
         t_phase = time.perf_counter()
         phase(launches)
         log(f"time: {phase.__name__} took "

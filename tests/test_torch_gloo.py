@@ -51,6 +51,60 @@ def cases(world: int):
             ("chunked", 12, "float32", "chunked", False)]
 
 
+# The channel envelope on the sharded engine, in the shape of the JAX
+# package's tests/test_sharded_hop_strings.py::
+# test_sharded_channel_envelope_match_product: X on every qubit and ZZ on
+# (0, 1), one carrier channel a control (carrier 0.5 q on qubit q, 1.3 on
+# the ZZ), Legendre, 3 basis functions, vv ~ 0.4 N(0, 1); T = 1 in 5 steps.
+CH_T, CH_STEPS = 1.0, 5
+
+
+def channel_cases(world: int):
+    """(name, qubits, dtype name, local_backend) of the channel cases at
+    ``world`` state ranks: 'xla' float64 at 8 qubits, and at 2 ranks
+    'fused' float32 at 11 (K1's band starts at 10 local qubits)."""
+    out = [("channel_xla_f64", 8, "float64", "xla")]
+    if world == 2:
+        out.append(("channel_fused", 11, "float32", "fused"))
+    return out
+
+
+def channel_rows(n: int):
+    """The reference's nested channel table of the channel problem."""
+    return [[[0.0, np.pi, 0.5 * q, q]] for q in range(n)] + \
+        [[[0.0, np.pi, 1.3, n]]]
+
+
+def channel_inputs(n: int):
+    """(vv [2, n + 1, 3], the observable's diagonal) on the host."""
+    rng = np.random.default_rng(1)
+    return 0.4 * rng.standard_normal((2, n + 1, 3)), \
+        rng.standard_normal(2**n)
+
+
+def channel_value_and_grad(mesh, n, dtype, backend):
+    """(value, vv gradient, state block) of a channel case on this rank."""
+    from diffquantum_tpu_torch.pulses.envelope import ChannelEnvelope
+    d = 2**n
+    terms = [TermStructure(kind="1q", qubit=q, local=linalg.X)
+             for q in range(n)]
+    terms.append(TermStructure(kind="diag", diag=linalg.zz_diagonal(n, 0, 1)))
+    ham = ControlledHamiltonian.create_structured(d, tuple(terms),
+                                                  dtype=dtype)
+    env = ChannelEnvelope.from_rows(channel_rows(n), n_basis=3, func_type=0)
+    vv, diag = channel_inputs(n)
+    c = torch.tensor(vv, dtype=dtype, requires_grad=True)
+    psi0 = CP(torch.full((d,), d ** -0.5, dtype=dtype),
+              torch.zeros(d, dtype=dtype))
+    psi = evolve_product_sharded(ham, env, c, psi0, 0.0, CH_T, horizon=CH_T,
+                                 n_steps=CH_STEPS, mesh=mesh,
+                                 local_backend=backend)
+    e = sharded_diag_expectation(psi, torch.tensor(diag, dtype=dtype), mesh)
+    (g,) = torch.autograd.grad(e, c)
+    return (e.detach().numpy(), g.numpy(),
+            torch.stack([psi.re, psi.im]).detach().numpy())
+
+
 def structure(n: int, hops: bool):
     """[(kind, args)] of the problem's control terms, in order."""
     out = [("zz", (i, (i + 1) % n)) for i in range(n)]
@@ -154,6 +208,9 @@ def rank_cases(rank: int, world: int, tmp: str):
     for name, n, dt, backend, hops in cases(world):
         out[name] = sharded_value_and_grad(mesh, n, getattr(torch, dt),
                                            backend, hops)
+    for name, n, dt, backend in channel_cases(world):
+        out[name] = channel_value_and_grad(mesh, n, getattr(torch, dt),
+                                           backend)
     if world == 4:
         mesh2 = make_mesh({"data": 2, "state": 2}, device="cpu")
         for backend in ("xla", "fused"):

@@ -1,7 +1,8 @@
-"""Guards of the PyTorch port: it imports neither JAX nor the JAX package
-(the sharded engine and its collectives included), its entry points
-refuse to run on the CPU unless asked (make_mesh and the molecule
-build functions too), what is ported keeps its refusals, the MC and FD
+"""Guards of the PyTorch port: it imports neither JAX, optax nor the JAX
+package (the sharded engine and its collectives, the facades, the native
+bindings and the demos_torch scripts included), its entry points refuse
+to run on the CPU unless asked (make_mesh, the molecule build functions
+and the facades too), what is ported keeps its refusals, the MC and FD
 estimators run at 18 qubits, the JAX package's engine names are no
 backends, the dense 'auto' rule and the CPU's route of 'apply', a mesh
 larger than the world raises, and chip_smoke.py fails without a
@@ -41,7 +42,7 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 
 def _forbidden(name: str) -> bool:
     return any(name == p or name.startswith(p + ".")
-               for p in ("jax", "jaxlib", "diffquantum_tpu"))
+               for p in ("jax", "jaxlib", "optax", "diffquantum_tpu"))
 
 
 def test_port_imports_no_jax():
@@ -51,6 +52,9 @@ def test_port_imports_no_jax():
     files += [REPO / "scripts" / f"{name}.py" for name in (
         "k7_times", "k7_variants", "grid_barrier_bench", "pk_times",
         "fp_times", "fp_variants")]
+    demos = sorted((REPO / "demos_torch").glob("*.py"))
+    assert len(demos) == 9
+    files += demos
     assert len(files) > 15
     names = {str(f.relative_to(REPO / "diffquantum_tpu_torch"))
              for f in files if "diffquantum_tpu_torch" in f.parts}
@@ -60,7 +64,8 @@ def test_port_imports_no_jax():
             "parallel/sharded_state.py", "models/molecule.py",
             "utils/checkpointing.py", "utils/profiling.py",
             "utils/plotting.py", "dynamics/lindblad.py",
-            "dynamics/ode.py"} <= names
+            "dynamics/ode.py", "compat/diffqc.py", "compat/sim_plain.py",
+            "native/bindings.py"} <= names
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
@@ -81,8 +86,10 @@ def no_card(monkeypatch):
 @pytest.mark.parametrize("entry", ["build_maxcut", "init_coeff", "convert",
                                    "measurement", "make_mesh", "build_h2_at",
                                    "sector_fci_from_strings",
-                                   "collapse_set"])
-def test_entry_points_need_a_card_unless_asked(no_card, entry):
+                                   "collapse_set", "simulator_plain",
+                                   "diffqc_set_H"])
+def test_entry_points_need_a_card_unless_asked(no_card, entry, tmp_path):
+    from diffquantum_tpu_torch.compat import SimulatorPlain, diffqc
     from diffquantum_tpu_torch.dynamics.lindblad import (CollapseSet,
                                                          amplitude_damping)
     from diffquantum_tpu_torch.models import molecule
@@ -99,6 +106,9 @@ def test_entry_points_need_a_card_unless_asked(no_card, entry):
             [("ZZ", 1.0)], 2, 1),
         "collapse_set": lambda: CollapseSet.create(
             [amplitude_damping(0.1, 0, 1)]),
+        "simulator_plain": lambda: SimulatorPlain(log_dir=str(tmp_path)),
+        "diffqc_set_H": lambda: diffqc.set_H(
+            np.zeros((2, 2)), [linalg.X], [[[0.0, 1.0, 0.0, 0]]], 1.0, 0),
     }[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()

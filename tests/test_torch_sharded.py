@@ -29,6 +29,7 @@ from diffquantum_tpu.parallel.mesh import train_energy_seeds as j_seeds
 from diffquantum_tpu.parallel.sharded_state import (
     evolve_product_sharded as j_sharded,
     sharded_diag_expectation as j_diag_exp)
+from diffquantum_tpu.pulses.envelope import ChannelEnvelope as JChannelEnvelope
 from diffquantum_tpu.pulses.envelope import SimpleEnvelope
 from diffquantum_tpu.train.config import TrainConfig as JConfig
 
@@ -82,6 +83,41 @@ def _jax_case(n, dtype, backend, hops, mesh_axes, members=0):
     (_, (e, out)), g = jax.jit(jax.value_and_grad(energy, has_aux=True))(
         coeff)
     return np.asarray(e), np.asarray(g), jcpx.to_complex(out)
+
+
+def _jax_channel_case(n, dtype, backend, world):
+    """(value, vv gradient, state as complex) of the JAX package's
+    sharded engine on a channel case (tests/test_torch_gloo.py's
+    ``channel_value_and_grad``)."""
+    d = 2**n
+    terms = [TermStructure(kind="1q", qubit=q, local=jlinalg.X)
+             for q in range(n)]
+    terms.append(TermStructure(kind="diag",
+                               diag=jlinalg.zz_diagonal(n, 0, 1)))
+    ham = ControlledHamiltonian.create_structured(
+        d, tuple(terms), h0_structure=TermStructure(kind="diag",
+                                                    diag=np.zeros(d)),
+        dtype=dtype)
+    env = JChannelEnvelope.from_rows(ranks.channel_rows(n), n_basis=3,
+                                     func_type=0)
+    vv, diag = ranks.channel_inputs(n)
+    psi0 = jcpx.from_complex(jlinalg.uniform_superposition(n), dtype=dtype)
+    mesh = j_make_mesh({"state": world})
+
+    def energy(c):
+        out = j_sharded(ham, env, c, psi0, 0.0, ranks.CH_T,
+                        horizon=ranks.CH_T, n_steps=ranks.CH_STEPS,
+                        mesh=mesh, local_backend=backend)
+        return j_diag_exp(out, jnp.asarray(diag, dtype), mesh), out
+
+    (e, out), g = jax.jit(jax.value_and_grad(energy, has_aux=True))(
+        jnp.asarray(vv, dtype))
+    return np.asarray(e), np.asarray(g), jcpx.to_complex(out)
+
+
+def jax_channel_refs_of(world):
+    return {name: _jax_channel_case(n, getattr(jnp, dt), backend, world)
+            for name, n, dt, backend in ranks.channel_cases(world)}
 
 
 def jax_refs_of(world):
@@ -173,6 +209,17 @@ def test_sharded_matches_jax(runs, jax_refs, name):
 
 def test_gradient_traps_against_unsharded_engine(runs):
     check_traps(runs)
+
+
+@pytest.mark.parametrize("name", [c[0] for c in ranks.channel_cases(WORLD)])
+def test_sharded_channel_envelope_matches_jax(runs, name):
+    """The channel envelope through the sharded engine ('xla' float64,
+    'fused' float32) against JAX's sharded engine on the same mesh size:
+    the gathered state, and every rank's value and vv gradient."""
+    n, dt, backend = next(c[1:] for c in ranks.channel_cases(WORLD)
+                          if c[0] == name)
+    check_case(runs, _jax_channel_case(n, getattr(jnp, dt), backend, WORLD),
+               name)
 
 
 def test_meshed_seeds_match_jax(runs):

@@ -10,7 +10,8 @@ import pytest
 
 import test_torch_gloo as ranks
 from test_torch_sharded import (_gather, _grad_close, _jax_case,
-                                check_case, check_traps, jax_refs_of)
+                                _jax_channel_case, check_case, check_traps,
+                                jax_refs_of)
 
 WORLD = 4
 
@@ -39,6 +40,16 @@ def test_sharded_matches_jax(runs, jax_refs, name):
 
 def test_gradient_traps_against_unsharded_engine(runs):
     check_traps(runs)
+
+
+@pytest.mark.parametrize("name", [c[0] for c in ranks.channel_cases(WORLD)])
+def test_sharded_channel_envelope_matches_jax(runs, name):
+    """The channel envelope through 'xla' float64 on a state axis of 4
+    (two distributed qubits of 8) against JAX's sharded engine."""
+    n, dt, backend = next(c[1:] for c in ranks.channel_cases(WORLD)
+                          if c[0] == name)
+    check_case(runs, _jax_channel_case(n, getattr(jnp, dt), backend, WORLD),
+               name)
 
 
 @pytest.mark.parametrize("backend", ["xla", "fused"])
