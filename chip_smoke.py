@@ -512,7 +512,7 @@ def phase_kernels():
             psi0 = _random_cp(rng, (b, d), 1.0 / np.sqrt(2 * d))
         leaves = [t.clone().requires_grad_(True)
                   for t in (psi0.re, psi0.im, th, tx)]
-        before = (tfp.K2_FWD_LAUNCHES, tfp.K2_BWD_LAUNCHES)
+        before = read_counts()
         t0 = time.perf_counter()
         out = tfp.fused_product_evolve_batched(CP(leaves[0], leaves[1]),
                                                leaves[2], leaves[3], qubits,
@@ -523,9 +523,9 @@ def phase_kernels():
                                                      kinds)
         lam = CP(2.0 * w * ref.re, 2.0 * w * ref.im)  # d<w>/dpsi
         got = torch.autograd.grad((out.re, out.im), leaves, (lam.re, lam.im))
-        torch.cuda.synchronize()
-        ran = (tfp.K2_FWD_LAUNCHES - before[0],
-               tfp.K2_BWD_LAUNCHES - before[1])
+        after = read_counts()
+        ran = (after["k2_forward"] - before["k2_forward"],
+               after["k2_backward"] - before["k2_backward"])
         if ran != (1, 1):
             fail(f"{label}: the wrapper launched K2 {ran} times (forward, "
                  f"backward), expected (1, 1)")
@@ -779,49 +779,35 @@ def phase_packed_kernels():
     return errs
 
 
-COUNTERS = {  # kernel name -> (module, launch counter)
-    "k1_forward": ("fused_product", "FWD_LAUNCHES"),
-    "k1_backward": ("fused_product", "BWD_LAUNCHES"),
-    "k2_forward": ("fused_product", "K2_FWD_LAUNCHES"),
-    "k2_backward": ("fused_product", "K2_BWD_LAUNCHES"),
-    "k3_forward": ("fused_product", "K3_FWD_LAUNCHES"),
-    "k3_backward": ("fused_product", "K3_BWD_LAUNCHES"),
+COUNTERS = (  # utils.profiling's launch counters, in the order printed
+    "k1_forward", "k1_backward", "k2_forward", "k2_backward", "k3_forward",
+    "k3_backward",
     # K5's chains of both forms, and the batched form's among them
-    "k5_forward": ("fused_chunked", "K5_FWD_LAUNCHES"),
-    "k5_backward": ("fused_chunked", "K5_BWD_LAUNCHES"),
-    "k5_batched_forward": ("fused_chunked", "K5_BATCHED_FWD_LAUNCHES"),
-    "k5_batched_backward": ("fused_chunked", "K5_BATCHED_BWD_LAUNCHES"),
+    "k5_forward", "k5_backward", "k5_batched_forward", "k5_batched_backward",
     # K6's likewise
-    "k6_forward": ("fused_mega_hop", "K6_FWD_LAUNCHES"),
-    "k6_backward": ("fused_mega_hop", "K6_BWD_LAUNCHES"),
-    "k6_batched_forward": ("fused_mega_hop", "K6_BATCHED_FWD_LAUNCHES"),
-    "k6_batched_backward": ("fused_mega_hop", "K6_BATCHED_BWD_LAUNCHES"),
-    "k7_forward": ("taylor_apply", "K7_FWD_LAUNCHES"),
-    "k7_backward": ("taylor_apply", "K7_BWD_LAUNCHES"),
+    "k6_forward", "k6_backward", "k6_batched_forward", "k6_batched_backward",
+    "k7_forward", "k7_backward",
     # K4 (the sharded engine's per-call step), and the dense 'apply'
     # backend's recurrence route (plain products, no kernel of its own)
-    "k4_forward": ("fused_chunked", "K4_FWD_LAUNCHES"),
-    "k4_backward": ("fused_chunked", "K4_BWD_LAUNCHES"),
-    "apply_recurrence": ("taylor_apply", "APPLY_RECURRENCE_CALLS"),
-}
-
-
-def _counter_module(name):
-    import importlib
-    return importlib.import_module(f"diffquantum_tpu_torch.ops.{name}")
+    "k4_forward", "k4_backward", "apply_recurrence",
+)
+_ZERO = {}   # the counters' totals at the last zero_counts()
 
 
 def zero_counts():
-    for mod, attr in COUNTERS.values():
-        setattr(_counter_module(mod), attr, 0)
+    from diffquantum_tpu_torch.utils import profiling
+    _ZERO.clear()
+    _ZERO.update(profiling.counters())
 
 
 def read_counts():
     """{kernel name: launches since zero_counts()} after a sync."""
     import torch
+
+    from diffquantum_tpu_torch.utils import profiling
     torch.cuda.synchronize()
-    return {k: getattr(_counter_module(mod), attr)
-            for k, (mod, attr) in COUNTERS.items()}
+    now = profiling.counters()
+    return {k: now[k] - _ZERO.get(k, 0) for k in COUNTERS}
 
 
 def expect_counts(path, counts, want):

@@ -51,6 +51,7 @@ from ..ops.fused_mega_hop import (invert_perm, permute_amplitude_bits,
 from ..ops.fused_product import (diag_rows_device, diag_vec_device,
                                  pack_diag_signs, parity_sign_masks,
                                  signs_planes_device, zero_drift)
+from ..utils import profiling
 from .hamiltonian import ControlledHamiltonian
 
 # Largest size routed to K3 ('packed'); past it K5 ('mega'). The JAX
@@ -348,6 +349,7 @@ def _rotation_inputs(ham: ControlledHamiltonian, dtg, u_oneq, u_hop):
     return theta_x, qubits, kinds
 
 
+@profiling.traced("pulse.chain_inputs")
 def fused_chain_inputs(ham: ControlledHamiltonian, envelope,
                        coeff: torch.Tensor, T0, T, horizon: float,
                        n_steps: int, t_sample: str = "left"):
@@ -417,6 +419,7 @@ def drift_is_zero(ham: ControlledHamiltonian, h0_vec) -> bool:
     return ham._memo[key]
 
 
+@profiling.traced("pulse.chain_inputs")
 def packed_chain_inputs(ham: ControlledHamiltonian, envelope,
                         coeff: torch.Tensor, T0, T, horizon: float,
                         n_steps: int, t_sample: str = "left"):

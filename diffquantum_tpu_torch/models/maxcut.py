@@ -27,6 +27,7 @@ from ..measure import Measurement
 from ..ops import cpx, linalg
 from ..ops.cpx import CP
 from ..pulses.envelope import SimpleEnvelope
+from ..utils import profiling
 from ..utils.device import resolve_device
 
 
@@ -71,6 +72,7 @@ class MaxCutProblem:
         return state, self.cut_value(state)
 
 
+@profiling.traced("build.problem", always=True)
 def build_maxcut(n_qubits: int, graph: Sequence[Sequence[int]],
                  n_basis: int = 6, basis: str = "bspline",
                  omega0: float = np.pi, omega1: float = np.pi,

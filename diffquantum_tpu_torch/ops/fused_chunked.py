@@ -30,17 +30,19 @@ only because the mega form compiles ~20x faster under Mosaic. Here both
 run on the same pass pair. At T = 1, the sharded engine's call, the
 chain is the leading half-phase with the step's rotations, then the
 trailing half-phase alone (nothing merges across calls).
-``K4_FWD_LAUNCHES`` / ``K4_BWD_LAUNCHES`` count its chains.
+The counters ``k4_forward`` / ``k4_backward`` count its chains.
 
 Dispatch: CPU tensors take the plain version, CUDA tensors launch the
-kernel pair. ``K5_FWD_LAUNCHES`` / ``K5_BWD_LAUNCHES`` count the chains
-of both mega forms; ``K5_BATCHED_FWD_LAUNCHES`` /
-``K5_BATCHED_BWD_LAUNCHES`` the batched form's among them.
+kernel pair. The counters ``k5_forward`` / ``k5_backward`` of
+:func:`..utils.profiling.count` count the chains of both mega forms;
+``k5_batched_forward`` / ``k5_batched_backward`` the batched form's
+among them.
 """
 from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
 from .cpx import CP
 from .fused_product import (_adjoint_packed_plain, _packed_plan,
                             fused_product_evolve_packed_plain,
@@ -51,13 +53,6 @@ from .fused_product import (_adjoint_packed_plain, _packed_plan,
 # (ops/fused_mega_hop.py), so c must be the JAX package's.
 _LANE_QUBITS = 7
 _F_BITS = 10  # free row bits per pass-A slab on the TPU
-
-K4_FWD_LAUNCHES = 0
-K4_BWD_LAUNCHES = 0
-K5_FWD_LAUNCHES = 0
-K5_BWD_LAUNCHES = 0
-K5_BATCHED_FWD_LAUNCHES = 0
-K5_BATCHED_BWD_LAUNCHES = 0
 
 
 def _plan(n_qubits: int):
@@ -88,28 +83,17 @@ def _check_kinds(x_qubits, kinds):
 
 
 def _count_k4(backward: bool):
-    global K4_FWD_LAUNCHES, K4_BWD_LAUNCHES
-    if backward:
-        K4_BWD_LAUNCHES += 1
-    else:
-        K4_FWD_LAUNCHES += 1
+    profiling.count("k4_backward" if backward else "k4_forward")
 
 
 def _count_single(backward: bool):
-    global K5_FWD_LAUNCHES, K5_BWD_LAUNCHES
-    if backward:
-        K5_BWD_LAUNCHES += 1
-    else:
-        K5_FWD_LAUNCHES += 1
+    profiling.count("k5_backward" if backward else "k5_forward")
 
 
 def _count_batched(backward: bool):
-    global K5_BATCHED_FWD_LAUNCHES, K5_BATCHED_BWD_LAUNCHES
     _count_single(backward)
-    if backward:
-        K5_BATCHED_BWD_LAUNCHES += 1
-    else:
-        K5_BATCHED_FWD_LAUNCHES += 1
+    profiling.count("k5_batched_backward" if backward
+                    else "k5_batched_forward")
 
 
 def _one(psi0: CP, ud, theta_x, what="chunked_evolve_mega") -> tuple:
@@ -147,8 +131,8 @@ def chunked_evolve(psi0: CP, ud: torch.Tensor, theta_x: torch.Tensor,
     bit-planes (no cotangent); kinds 'x' or 'y'. Tables are contiguous (a
     slice of ``signs`` along the amplitudes is not until copied).
     ``fast_math`` changes nothing. One chain of pass launches on the card
-    (and one for the adjoint), counted in ``K4_FWD_LAUNCHES`` /
-    ``K4_BWD_LAUNCHES``."""
+    (and one for the adjoint), counted in ``k4_forward`` /
+    ``k4_backward``."""
     del fast_math
     return _single_chain(psi0, ud, theta_x, h0th, signs, x_qubits,
                          n_qubits, kinds, _count_k4, "K4")

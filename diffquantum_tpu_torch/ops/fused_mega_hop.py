@@ -40,9 +40,10 @@ angles (a hop's already doubled, 2 dt u), neither halved nor made
 palindromic: the schedule does that.
 
 Dispatch: CPU tensors take the plain version, CUDA tensors launch the
-kernel pair. ``K6_FWD_LAUNCHES`` / ``K6_BWD_LAUNCHES`` count the chains of
-both forms; ``K6_BATCHED_FWD_LAUNCHES`` / ``K6_BATCHED_BWD_LAUNCHES`` the
-batched form's among them.
+kernel pair. The counters ``k6_forward`` / ``k6_backward`` of
+:func:`..utils.profiling.count` count the chains of both forms;
+``k6_batched_forward`` / ``k6_batched_backward`` the batched form's among
+them.
 """
 from __future__ import annotations
 
@@ -51,16 +52,12 @@ import warnings
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .cpx import CP
 from .fused_chunked import _one, _plan, check_size
 from .fused_product import (SCALE_ONE, _plan_ops, _with_scale,
                             packed_adjoint_plain, packed_chain_plain,
                             run_packed_chain)
-
-K6_FWD_LAUNCHES = 0
-K6_BWD_LAUNCHES = 0
-K6_BATCHED_FWD_LAUNCHES = 0
-K6_BATCHED_BWD_LAUNCHES = 0
 
 _HALF = SCALE_ONE // 2  # scale column value of a half-angle row
 
@@ -239,20 +236,13 @@ def relabel_mask(mask: int, perm, n_qubits: int) -> int:
 # ---------------------------------------------------------------------------
 
 def _count_single(backward: bool):
-    global K6_FWD_LAUNCHES, K6_BWD_LAUNCHES
-    if backward:
-        K6_BWD_LAUNCHES += 1
-    else:
-        K6_FWD_LAUNCHES += 1
+    profiling.count("k6_backward" if backward else "k6_forward")
 
 
 def _count_batched(backward: bool):
-    global K6_BATCHED_FWD_LAUNCHES, K6_BATCHED_BWD_LAUNCHES
     _count_single(backward)
-    if backward:
-        K6_BATCHED_BWD_LAUNCHES += 1
-    else:
-        K6_BATCHED_FWD_LAUNCHES += 1
+    profiling.count("k6_batched_backward" if backward
+                    else "k6_batched_forward")
 
 
 def chunked_evolve_mega_hop(psi0: CP, ud: torch.Tensor,

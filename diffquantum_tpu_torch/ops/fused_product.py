@@ -48,10 +48,11 @@ applies its rotation by scale x theta_x[slot], and a slot may have
 several rows (K6's half-angle sweeps), whose scaled gradients add.
 
 Dispatch: CPU tensors take the plain version, CUDA tensors launch the
-kernel (``FWD_LAUNCHES`` / ``BWD_LAUNCHES`` count K1's launches,
-``K2_FWD_LAUNCHES`` / ``K2_BWD_LAUNCHES`` K2's, ``K3_FWD_LAUNCHES`` /
-``K3_BWD_LAUNCHES`` K3's, one per chain); there is no fallback from one
-to the other. The pass kernels of K3-K6 take their geometry from
+kernel (the counters ``k1_forward`` / ``k1_backward`` of
+:func:`..utils.profiling.count` count K1's launches, ``k2_*`` K2's,
+``k3_*`` K3's, one per chain; each launch, or plain version, is a
+``chain.fwd`` / ``chain.bwd`` span); there is no fallback from one to
+the other. The pass kernels of K3-K6 take their geometry from
 :func:`pk_plan` and their pass and op tables from :func:`_pass_layout`.
 """
 from __future__ import annotations
@@ -64,6 +65,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import _build
 from .cpx import CP
 
@@ -75,13 +77,6 @@ MIN_QUBITS, MAX_QUBITS = 10, 17   # the router's 'streamed' band
 PLANE_BITS = 30        # sign bits per int32 plane
 MAX_PACKED_TERMS = 120  # 4 planes
 SCALE_ONE = 2          # a packed op row's scale column counts halves
-
-FWD_LAUNCHES = 0       # K1 launches
-BWD_LAUNCHES = 0
-K2_FWD_LAUNCHES = 0
-K2_BWD_LAUNCHES = 0
-K3_FWD_LAUNCHES = 0
-K3_BWD_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -914,18 +909,11 @@ def _members(psi_re: torch.Tensor) -> int:
 
 
 def _count(batched: bool, backward: bool):
-    global FWD_LAUNCHES, BWD_LAUNCHES, K2_FWD_LAUNCHES, K2_BWD_LAUNCHES
-    if batched and backward:
-        K2_BWD_LAUNCHES += 1
-    elif batched:
-        K2_FWD_LAUNCHES += 1
-    elif backward:
-        BWD_LAUNCHES += 1
-    else:
-        FWD_LAUNCHES += 1
+    profiling.count(("k2_" if batched else "k1_")
+                    + ("backward" if backward else "forward"))
 
 
-_FP_LAUNCHES: dict = {}
+_FP_RECORDS: dict = {}
 
 
 def _fp_launch(plan, n_qubits, th, tx, members, backward, device):
@@ -938,7 +926,7 @@ def _fp_launch(plan, n_qubits, th, tx, members, backward, device):
     rounds, four ints each."""
     key = (plan.tobytes(), n_qubits, th.shape[0], th.shape[1], tx.shape[1],
            members, backward, device)
-    rec = _FP_LAUNCHES.get(key)
+    rec = _FP_RECORDS.get(key)
     if rec is None:
         geo = fp_plan(n_qubits, tuple(map(tuple, plan.tolist())), members,
                       th.shape[1], _sm_count(device), backward)
@@ -949,7 +937,7 @@ def _fp_launch(plan, n_qubits, th, tx, members, backward, device):
         host = np.asarray(head + sum(geo.ops, ()) + sum(
             ((r.begin, r.count, r.reg, r.blk) for r in geo.rounds), ()),
             dtype=np.int32)
-        rec = _FP_LAUNCHES[key] = (geo, _plan_tensor(geo.ops, device), host,
+        rec = _FP_RECORDS[key] = (geo, _plan_tensor(geo.ops, device), host,
                                    host.ctypes.data)
     return rec
 
@@ -966,7 +954,7 @@ def _forward_cuda(psi_re, psi_im, theta_half, theta_x, plan, n_qubits):
     xbuf = torch.empty((geo.chunk, 2, 2, 1 << n_qubits), dtype=torch.float32,
                        device=dev) if geo.mode == "grid" else None
     lib = _lib()
-    with torch.cuda.device(dev):
+    with profiling.span("chain.fwd"), torch.cuda.device(dev):
         code = lib.dq_forward(
             _ptr(th), _ptr(tx), _ptr(psi_re), _ptr(psi_im), _ptr(ops), host,
             _ptr(out_re), _ptr(out_im), _ptr(xbuf),
@@ -995,7 +983,7 @@ def _backward_cuda(out_re, out_im, lam_re, lam_im, theta_half, theta_x,
     xbuf = torch.empty((geo.chunk, 2, 4, d), **f32) \
         if geo.mode == "grid" else None
     lib = _lib()
-    with torch.cuda.device(dev):
+    with profiling.span("chain.bwd"), torch.cuda.device(dev):
         code = lib.dq_backward(
             _ptr(th), _ptr(tx), _ptr(out_re), _ptr(out_im), _ptr(lam_re),
             _ptr(lam_im), _ptr(ops), host, _ptr(gth), _ptr(gtx),
@@ -1027,8 +1015,9 @@ class _FusedProductEvolve(torch.autograd.Function):
         elif psi_re.device.type == "cpu":
             plain = fused_product_evolve_batched_plain if batched \
                 else fused_product_evolve_plain
-            out = plain(CP(psi_re, psi_im), theta_half, theta_x, x_qubits,
-                        n_qubits, kinds)
+            with profiling.span("chain.fwd"):
+                out = plain(CP(psi_re, psi_im), theta_half, theta_x,
+                            x_qubits, n_qubits, kinds)
             out_re, out_im = out.re, out.im
         else:
             raise ValueError(f"fused_product_evolve: no path for device "
@@ -1048,9 +1037,10 @@ class _FusedProductEvolve(torch.autograd.Function):
                 n_qubits)
         else:
             plain = _adjoint_batched_plain if batched else _adjoint_plain
-            gp, gth, gtx = plain(CP(out_re, out_im), CP(lam_re, lam_im),
-                                 theta_half, theta_x, x_qubits, n_qubits,
-                                 kinds)
+            with profiling.span("chain.bwd"):
+                gp, gth, gtx = plain(CP(out_re, out_im), CP(lam_re, lam_im),
+                                     theta_half, theta_x, x_qubits, n_qubits,
+                                     kinds)
             gp_re, gp_im = gp.re, gp.im
         return gp_re, gp_im, gth, gtx, None, None, None, None
 
@@ -1695,7 +1685,7 @@ def _packed_forward_cuda(psi_re, psi_im, udm, tx, h0th, signs, plan,
     out_re = psi_re.clone(memory_format=torch.contiguous_format)
     out_im = psi_im.clone(memory_format=torch.contiguous_format)
     lib = _packed_lib()
-    with torch.cuda.device(psi_re.device):
+    with profiling.span("chain.fwd"), torch.cuda.device(psi_re.device):
         stream = torch.cuda.current_stream(psi_re.device).cuda_stream
         code = lib.dq_pk_forward(
             _ptr(out_re), _ptr(out_im), _ptr(udm), _ptr(tx), _ptr(h0th),
@@ -1729,7 +1719,7 @@ def _packed_backward_cuda(out_re, out_im, lam_re, lam_im, udm, tx, h0th,
     gud = torch.empty((n_steps + 1, b, n_diag + 1), **f32)
     gtx = torch.empty((n_steps, b, n_x), **f32)
     lib = _packed_lib()
-    with torch.cuda.device(dev):
+    with profiling.span("chain.bwd"), torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.dq_pk_backward(
             _ptr(y_re), _ptr(y_im), _ptr(l_re), _ptr(l_im), _ptr(udm),
@@ -1745,11 +1735,7 @@ def _packed_backward_cuda(out_re, out_im, lam_re, lam_im, udm, tx, h0th,
 
 
 def _count_k3(backward: bool):
-    global K3_FWD_LAUNCHES, K3_BWD_LAUNCHES
-    if backward:
-        K3_BWD_LAUNCHES += 1
-    else:
-        K3_FWD_LAUNCHES += 1
+    profiling.count("k3_backward" if backward else "k3_forward")
 
 
 class _PackedEvolve(torch.autograd.Function):
@@ -1771,8 +1757,10 @@ class _PackedEvolve(torch.autograd.Function):
                 what)
             count(False)
         elif psi_re.device.type == "cpu":
-            out_re, out_im = _packed_core(psi_re, psi_im, udm, theta_x,
-                                          h0th, signs, plan, 1 << n_qubits)
+            with profiling.span("chain.fwd"):
+                out_re, out_im = _packed_core(psi_re, psi_im, udm, theta_x,
+                                              h0th, signs, plan,
+                                              1 << n_qubits)
         else:
             raise ValueError(f"{what}: no path for device {psi_re.device}")
         ctx.save_for_backward(out_re, out_im, udm, theta_x, h0th, signs)
@@ -1790,9 +1778,10 @@ class _PackedEvolve(torch.autograd.Function):
                 plan, n_qubits, what)
             count(True)
         else:
-            gp_re, gp_im, gud, gtx = _packed_adjoint_core(
-                out_re, out_im, lam_re, lam_im, udm, theta_x, h0th, signs,
-                plan, 1 << n_qubits)
+            with profiling.span("chain.bwd"):
+                gp_re, gp_im, gud, gtx = _packed_adjoint_core(
+                    out_re, out_im, lam_re, lam_im, udm, theta_x, h0th,
+                    signs, plan, 1 << n_qubits)
         return (gp_re, gp_im, unmerge_phase_grads(gud), gtx, None, None,
                 None, None, None, None, None)
 

@@ -39,17 +39,12 @@ import dataclasses
 
 import torch
 
+from ..utils import profiling
 from . import _build, cpx
 from .cpx import CP
 from .expm import taylor_recurrence
 
 MAX_D = 1024  # the largest dimension K7 takes (the TPU kernel's _MAX_D)
-
-# launches since the last reset (chip_smoke.py sets them to 0 around a
-# path and reads them after it); the recurrence route counts its steps
-K7_FWD_LAUNCHES = 0
-K7_BWD_LAUNCHES = 0
-APPLY_RECURRENCE_CALLS = 0
 
 
 def apply_route(device, dtype, d: int) -> str:
@@ -276,8 +271,8 @@ def _contig(*ts):
 
 
 def _forward_cuda(h_re, h_im, p_re, p_im, zs, order: int, substeps: int):
-    """One K7 forward launch; returns (out_re, out_im)."""
-    global K7_FWD_LAUNCHES
+    """One K7 forward launch (counter ``k7_forward``); returns (out_re,
+    out_im)."""
     h_re, h_im, p_re, p_im, zs = _contig(h_re, h_im, p_re, p_im, zs)
     b, d = p_re.shape
     plan = k7_plan(d, b, False, order * substeps)
@@ -287,7 +282,7 @@ def _forward_cuda(h_re, h_im, p_re, p_im, zs, order: int, substeps: int):
         buf = torch.empty(4 * b * plan.stride, dtype=torch.float32,
                           device=p_re.device)
     lib = _lib()
-    with torch.cuda.device(p_re.device):
+    with profiling.span("chain.fwd"), torch.cuda.device(p_re.device):
         stream = torch.cuda.current_stream(p_re.device).cuda_stream
         code = lib.dq_k7_forward(
             h_re.data_ptr(), h_im.data_ptr(), p_re.data_ptr(),
@@ -295,14 +290,14 @@ def _forward_cuda(h_re, h_im, p_re, p_im, zs, order: int, substeps: int):
             out_im.data_ptr(), buf.data_ptr(), d, b, order, substeps,
             *_plan_ints(plan), stream)
     _raise_on(lib, code, "K7 forward", plan)
-    K7_FWD_LAUNCHES += 1
+    profiling.count("k7_forward")
     return out_re, out_im
 
 
 def _backward_cuda(h_re, h_im, p_re, p_im, g_re, g_im, zs, order: int,
                    substeps: int):
-    """One K7 backward launch; returns (gh_re, gh_im, gp_re, gp_im)."""
-    global K7_BWD_LAUNCHES
+    """One K7 backward launch (counter ``k7_backward``); returns (gh_re,
+    gh_im, gp_re, gp_im)."""
     h_re, h_im, p_re, p_im, g_re, g_im, zs = _contig(
         h_re, h_im, p_re, p_im, g_re, g_im, zs)
     b, d = p_re.shape
@@ -320,7 +315,7 @@ def _backward_cuda(h_re, h_im, p_re, p_im, g_re, g_im, zs, order: int,
         if plan.grid > 1:
             gbuf = torch.empty(plan.grid * 2 * d * d, **f32)
     lib = _lib()
-    with torch.cuda.device(p_re.device):
+    with profiling.span("chain.bwd"), torch.cuda.device(p_re.device):
         stream = torch.cuda.current_stream(p_re.device).cuda_stream
         code = lib.dq_k7_backward(
             h_re.data_ptr(), h_im.data_ptr(), p_re.data_ptr(),
@@ -330,7 +325,7 @@ def _backward_cuda(h_re, h_im, p_re, p_im, g_re, g_im, zs, order: int,
             gbuf.data_ptr(), d, b, order, substeps, *_plan_ints(plan),
             int(plan.terms_in_smem), stream)
     _raise_on(lib, code, "K7 backward", plan)
-    K7_BWD_LAUNCHES += 1
+    profiling.count("k7_backward")
     return gh_re, gh_im, gp_re, gp_im
 
 
@@ -345,8 +340,9 @@ class _TaylorApply(torch.autograd.Function):
             out_re, out_im = _forward_cuda(h_re, h_im, p_re, p_im, zs,
                                            order, substeps)
         elif p_re.device.type == "cpu":
-            out = taylor_apply_plain(CP(h_re, h_im), CP(p_re, p_im), zs,
-                                     order, substeps)
+            with profiling.span("chain.fwd"):
+                out = taylor_apply_plain(CP(h_re, h_im), CP(p_re, p_im), zs,
+                                         order, substeps)
             out_re, out_im = out.re, out.im
         else:
             raise ValueError(f"taylor_apply: no path for device "
@@ -363,9 +359,10 @@ class _TaylorApply(torch.autograd.Function):
             gh_re, gh_im, gp_re, gp_im = _backward_cuda(
                 h_re, h_im, p_re, p_im, g_re, g_im, zs, order, substeps)
         else:
-            gh, gp = taylor_apply_backward_plain(
-                CP(h_re, h_im), CP(p_re, p_im), CP(g_re, g_im), zs, order,
-                substeps)
+            with profiling.span("chain.bwd"):
+                gh, gp = taylor_apply_backward_plain(
+                    CP(h_re, h_im), CP(p_re, p_im), CP(g_re, g_im), zs,
+                    order, substeps)
             gh_re, gh_im, gp_re, gp_im = gh.re, gh.im, gp.re, gp.im
         return gh_re, gh_im, gp_re, gp_im, None, None, None
 
@@ -395,10 +392,9 @@ def taylor_apply_recurrence(h: CP, psi: CP, zs: torch.Tensor, order: int,
                             substeps: int) -> CP:
     """The 'recurrence' route of :func:`apply_route`: :func:`taylor_apply`'s
     function (zs as :func:`taylor_apply_zs`) in plain products on any
-    device and dtype, differentiated by autograd; counted in
-    ``APPLY_RECURRENCE_CALLS``."""
-    global APPLY_RECURRENCE_CALLS
-    APPLY_RECURRENCE_CALLS += 1
+    device and dtype, differentiated by autograd; counted in the counter
+    ``apply_recurrence``."""
+    profiling.count("apply_recurrence")
     return taylor_recurrence(h, psi, zs[0], zs[1], order, substeps)
 
 

@@ -54,6 +54,7 @@ from ..measure import Measurement
 from ..ops.cpx import CP
 from ..train.config import TrainConfig
 from ..train.energy import make_optimizer
+from ..utils import profiling
 from ..utils.device import resolve_device
 from .comm import Axis, all_gather
 
@@ -136,6 +137,7 @@ class SeedsResult:
     best_loss: float
 
 
+@profiling.traced("train.job")
 def train_energy_seeds(
     ham,
     envelope,
@@ -190,7 +192,8 @@ def train_energy_seeds(
         lo = data.index * n_local
         cs = cs[lo:lo + n_local].clone()
     cs.requires_grad_(True)
-    opt = make_optimizer(config, [cs])
+    with profiling.span("train.optim_init", always=True):
+        opt = make_optimizer(config, [cs])
     draws = torch.Generator(device=dev).manual_seed(config.seed + 1)
     psi_b = CP(psi0.re.expand(n_local, -1), psi0.im.expand(n_local, -1))
     evolve_kw = dict(backend=config.backend, precision=config.precision,
@@ -217,21 +220,27 @@ def train_energy_seeds(
         return g.reshape((n_local, n) + tuple(g.shape[1:])).mean(dim=1)
 
     losses = []
-    for _ in range(config.n_epoch):
-        c = cs.detach()
-        if config.grad_mode == "mc":
-            with torch.no_grad():
-                e = energies(c)
-                g = mc_grads(c)
-        else:
-            c = c.requires_grad_(True)
-            with torch.enable_grad():
-                e = energies(c)
-                (g,) = torch.autograd.grad(e.sum(), c)
-            e = e.detach()
-        cs.grad = g.to(rdt)
-        opt.step()
-        losses.append(e)
+    for k in range(config.n_epoch):
+        with profiling.span("train.epoch", epoch=k):
+            c = cs.detach()
+            if config.grad_mode == "mc":
+                with torch.no_grad():
+                    with profiling.span("train.energy"):
+                        e = energies(c)
+                    with profiling.span("train.grad"):
+                        g = mc_grads(c)
+            else:
+                c = c.requires_grad_(True)
+                with torch.enable_grad():
+                    with profiling.span("train.energy"):
+                        e = energies(c)
+                    with profiling.span("train.grad"):
+                        (g,) = torch.autograd.grad(e.sum(), c)
+                e = e.detach()
+            cs.grad = g.to(rdt)
+            with profiling.span("train.optim"):
+                opt.step()
+            losses.append(e)
 
     coeffs = cs.detach()
     if losses:

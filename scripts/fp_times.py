@@ -46,7 +46,7 @@ CASES = (("K1 12q ring, T=30", 12, 30, None, None, "ring", 200),
          ("K2 16q ring, T=30, B=8", 16, 30, 8, 8, "ring", 10),
          ("K2 16q ring, T=30, B=16", 16, 30, 16, 16, "ring", 10),
          ("K2 17q ring, T=30, B=4", 17, 30, 4, 4, "ring", 10))
-HOST_LAUNCHES, HOST_RUNS = 200, 5
+HOST_CALLS, HOST_RUNS = 200, 5
 
 
 def case_inputs(cs, n, n_steps, b, rows, drive):
@@ -113,7 +113,7 @@ def case_times(cs, cases):
 def host_times(cs):
     """The host's time to issue one K1 launch (12q ring, T=30) through
     ``_forward_cuda`` / ``_backward_cuda``: the wall time of
-    ``HOST_LAUNCHES`` launches with no sync between them (the card's queue
+    ``HOST_CALLS`` launches with no sync between them (the card's queue
     takes them faster than it runs them), in us a launch, the least of
     ``HOST_RUNS`` runs (the host is shared, and its noise only adds)."""
     import time
@@ -135,12 +135,12 @@ def host_times(cs):
                 fn()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            for _ in range(HOST_LAUNCHES):
+            for _ in range(HOST_CALLS):
                 fn()
-            runs.append((time.perf_counter() - t0) / HOST_LAUNCHES * 1e6)
+            runs.append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
             torch.cuda.synchronize()
         cs.log(f"time: fp host K1 12q {part} {min(runs)!r} us a launch "
-               f"(least of {runs!r}: {HOST_LAUNCHES} launches, no sync)")
+               f"(least of {runs!r}: {HOST_CALLS} launches, no sync)")
         out[part] = min(runs)
     return out
 

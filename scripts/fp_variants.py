@@ -136,7 +136,7 @@ def main():
                    f"kernels in nvcc's order)")
             tfp.fp_plan = own_plan
             _build._LIBS["fused_product"] = ctypes.CDLL(lib)
-        tfp._FP_LAUNCHES.clear()
+        tfp._FP_RECORDS.clear()
         times = ft.case_times(cs, cases)
         result[name] = {c: {part: v[0] for part, v in parts.items()}
                         for c, parts in times.items()}

@@ -45,11 +45,13 @@ A problem is built only for the paths asked for (the 24-qubit one takes
 the host tens of seconds).
 For each it runs the steps under ``torch.profiler`` and prints: the wall
 time per step, the device time per step by kernel (largest first), the
-number of device ops per step, and the device's busy and idle share of
-the profiled window. The profiler slows the host, so it then times the
-same steps with the profiler off and prints the idle share that the
-profiled device time leaves in that window: an estimate from two windows,
-labelled so. The epoch paths run their steps as one call of
+number of device ops per step, the device's busy and idle share of
+the profiled window, and the program's own spans (``utils.profiling``:
+per span name its count, host ms and device ms a step, and its self
+device ms, less its child spans'). The profiler slows the host, so it
+then times the same steps with the profiler off and prints the idle
+share that the profiled device time leaves in that window: an estimate
+from two windows, labelled so. The epoch paths run their steps as one call of
 ``n_epoch = steps`` (one set-up per window). Needs a CUDA card; imports
 nothing of JAX.
 """
@@ -183,12 +185,43 @@ def make_run(name):
     }[name]
 
 
+def span_table(name, n):
+    """Prints the program's spans of the profiled window, a row per name:
+    count, host ms, device ms and self device ms, each a step."""
+    from diffquantum_tpu_torch.utils import profiling
+
+    win = profiling.window()
+    kids = {}
+    for s in win.spans:
+        if s.parent is not None and s.device_ms is not None:
+            kids[s.parent] = kids.get(s.parent, 0.0) + s.device_ms
+    rows = {}
+    for i, s in enumerate(win.spans):
+        r = rows.setdefault(s.name, [0, 0.0, 0.0, 0.0])
+        dev = s.device_ms or 0.0
+        r[0] += 1
+        r[1] += s.host_ms
+        r[2] += dev
+        r[3] += dev - kids.get(i, 0.0)
+    print(f"[{name}] program spans per step (count, host ms, device ms, "
+          "self device ms, name):")
+    for span, (k, host, dev, own) in sorted(rows.items(),
+                                            key=lambda kv: -kv[1][2]):
+        print(f"  {k / n:7.2f}  {host / n:10.4f}  {dev / n:10.4f}  "
+              f"{own / n:10.4f}  {span}")
+    if not rows:
+        print(f"[{name}] the path opened no program span")
+
+
 def profile_path(name, run, n):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from diffquantum_tpu_torch.utils import profiling
+
     run(5)
     torch.cuda.synchronize()
+    profiling.reset_window()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -218,6 +251,7 @@ def profile_path(name, run, n):
         print(f"  {dev_us / n:10.3f}  {count / n:6.2f}  {key[:90]}")
     if not rows:
         print(f"[{name}] the profiler recorded no device time")
+    span_table(name, n)
 
     t0 = time.perf_counter()
     run(n)

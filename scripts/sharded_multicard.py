@@ -117,8 +117,8 @@ def main():
     from diffquantum_tpu_torch.dynamics.product import evolve_product
     from diffquantum_tpu_torch.gradients.adjoint import energy_and_grad
     from diffquantum_tpu_torch.measure import diag_expectation
-    from diffquantum_tpu_torch.ops import fused_chunked as tfc
     from diffquantum_tpu_torch.parallel import make_mesh
+    from diffquantum_tpu_torch.utils import profiling
 
     if args.device == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -160,11 +160,12 @@ def main():
     coeff_l = torch.tensor(0.4 * np.random.default_rng(n + 1)
                            .standard_normal(env_l.coeff_shape),
                            dtype=torch.float32, device=dev)
-    k4 = (tfc.K4_FWD_LAUNCHES, tfc.K4_BWD_LAUNCHES)
+    k4 = profiling.counters()
     val, grad = sharded_grad(mesh, prob_l, env_l, coeff_l, 30, "chunked")
     sync(dev)
-    out["k4_launches"] = [tfc.K4_FWD_LAUNCHES - k4[0],
-                          tfc.K4_BWD_LAUNCHES - k4[1]]
+    now = profiling.counters()
+    out["k4_launches"] = [now[k] - k4[k] for k in ("k4_forward",
+                                                   "k4_backward")]
     if dev.type == "cuda" and out["k4_launches"] != [30, 30]:
         failures.append(f"'chunked' launched K4 {out['k4_launches']}, "
                         f"expected 30 each way")

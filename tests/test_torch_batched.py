@@ -37,6 +37,7 @@ from diffquantum_tpu_torch.parallel import train_energy_seeds as t_seeds
 from diffquantum_tpu_torch.pulses import envelope as tenv
 from diffquantum_tpu_torch.train.config import TrainConfig as TConfig
 from diffquantum_tpu_torch.train.energy import make_optimizer
+from diffquantum_tpu_torch.utils import profiling
 
 N = 10
 D = 2**N
@@ -111,7 +112,8 @@ def test_k2_plain_matches_jax_kernel(plan, n_steps, b, rows, form):
                               "dtheta_x"), tg, jg):
         assert a.shape == want.shape, name
         _rel_close(a.numpy(), np.asarray(want), 1e-4)
-    assert tfp.K2_FWD_LAUNCHES == 0 and tfp.K2_BWD_LAUNCHES == 0
+    launched = profiling.counters()
+    assert launched["k2_forward"] == 0 and launched["k2_backward"] == 0
 
 
 def test_k2_group_rows_equal_repeated_member_rows():
@@ -374,7 +376,8 @@ def test_train_energy_seeds_adjoint_matches_jax(prec):
         np.testing.assert_allclose(tr.losses, jr.losses, rtol=0, atol=5e-5)
     assert tr.best_seed == jr.best_seed
     assert np.all(tr.losses[-1] < tr.losses[0])
-    assert tfp.K2_FWD_LAUNCHES == 0  # the CPU takes the plain version
+    # the CPU takes the plain version
+    assert profiling.counters()["k2_forward"] == 0
 
 
 @pytest.mark.gpu
@@ -388,14 +391,16 @@ def test_k2_kernel_matches_plain_on_card():
         xq, kinds, psi, th, tx, lam = _k2_inputs(plan, 5, b, rows, seed=1)
         cu = [torch.tensor(v, device="cuda") for v in (psi[0], psi[1], th,
                                                        tx)]
-        f0, b0 = tfp.K2_FWD_LAUNCHES, tfp.K2_BWD_LAUNCHES
+        before = profiling.counters()
         ts = [t.clone().requires_grad_(True) for t in cu]
         out = tfp.fused_product_evolve_batched(CP(ts[0], ts[1]), ts[2],
                                                ts[3], xq, N, kinds)
         lam_t = [torch.tensor(v, device="cuda") for v in lam]
         got = torch.autograd.grad((out.re, out.im), ts, lam_t)
         torch.cuda.synchronize()
-        assert (tfp.K2_FWD_LAUNCHES - f0, tfp.K2_BWD_LAUNCHES - b0) == (1, 1)
+        now = profiling.counters()
+        assert (now["k2_forward"] - before["k2_forward"],
+                now["k2_backward"] - before["k2_backward"]) == (1, 1)
         ref = tfp.fused_product_evolve_batched_plain(
             CP(cu[0], cu[1]), cu[2], cu[3], xq, N, kinds)
         _rel_close(out.re.detach().cpu().numpy(), ref.re.cpu().numpy(),

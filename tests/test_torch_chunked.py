@@ -22,6 +22,7 @@ from diffquantum_tpu.ops.cpx import CP as JCP
 from diffquantum_tpu_torch.ops import fused_chunked as tfc
 from diffquantum_tpu_torch.ops import fused_product as tfp
 from diffquantum_tpu_torch.ops.cpx import CP
+from diffquantum_tpu_torch.utils import profiling
 
 N = 12
 D = 2**N
@@ -70,7 +71,7 @@ def test_k4_plain_matches_jax_kernel(n_steps, f_bits, monkeypatch):
 
     ts = [torch.tensor(v, requires_grad=True)
           for v in (psi[0], psi[1], ud, tx)]
-    k4 = (tfc.K4_FWD_LAUNCHES, tfc.K4_BWD_LAUNCHES)
+    before = profiling.counters()
     out = tfc.chunked_evolve(CP(ts[0], ts[1]), ts[2], ts[3],
                              torch.tensor(h0th), torch.tensor(signs), XQ, N,
                              KINDS)
@@ -93,7 +94,9 @@ def test_k4_plain_matches_jax_kernel(n_steps, f_bits, monkeypatch):
         ref, CP(*map(torch.tensor, lam)), *args, XQ, N, KINDS)
     for a, b in zip((gp.re, gp.im, gud, gtx), tg):
         torch.testing.assert_close(a, b)
-    assert (tfc.K4_FWD_LAUNCHES, tfc.K4_BWD_LAUNCHES) == k4  # CPU: plain
+    now = profiling.counters()
+    assert (now["k4_forward"], now["k4_backward"]) == \
+        (before["k4_forward"], before["k4_backward"])  # CPU: plain
 
 
 def test_k4_equals_k5_chain():

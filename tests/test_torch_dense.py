@@ -30,6 +30,7 @@ from diffquantum_tpu_torch.ops import cpx as tcpx
 from diffquantum_tpu_torch.ops import expm as texpm
 from diffquantum_tpu_torch.ops import taylor_apply as tta
 from diffquantum_tpu_torch.ops.cpx import CP
+from diffquantum_tpu_torch.utils import profiling
 
 
 def _rel_close(got, want, rel):
@@ -149,7 +150,7 @@ def test_taylor_apply_wrapper_on_cpu():
     single state [d] kept [d], no launch counted."""
     rng = np.random.default_rng(5)
     h, psi = _hermitian(rng, 8, 1.0), _kets(rng, (8,))
-    f0, b0 = tta.K7_FWD_LAUNCHES, tta.K7_BWD_LAUNCHES
+    before = profiling.counters()
     H = CP(*(x.requires_grad_(True) for x in _t(h)))
     order, s = texpm.taylor_params(1.4, 1e-7)
     out = tta.taylor_apply(H, _t(psi), 0.0, -0.7, order, 2**s)
@@ -158,7 +159,9 @@ def test_taylor_apply_wrapper_on_cpu():
     want = jexpm.cexpm_apply_taylor(_j(h), _j(psi), 0.0, -0.7, 1.4)
     np.testing.assert_allclose(tcpx.to_complex(out), jcpx.to_complex(want),
                                rtol=0, atol=1e-13)
-    assert (tta.K7_FWD_LAUNCHES, tta.K7_BWD_LAUNCHES) == (f0, b0)
+    now = profiling.counters()
+    assert (now["k7_forward"], now["k7_backward"]) == \
+        (before["k7_forward"], before["k7_backward"])
 
 
 @pytest.mark.parametrize("case", ["maxcut", "controls", "h2", "drift"])

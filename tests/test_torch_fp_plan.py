@@ -281,7 +281,7 @@ def test_launch_record(monkeypatch):
     the header, the op rows and the rounds; one record a plan, shapes,
     direction and device, built once."""
     monkeypatch.setattr(tfp, "_sm_count", lambda device: 132)
-    monkeypatch.setattr(tfp, "_FP_LAUNCHES", {})
+    monkeypatch.setattr(tfp, "_FP_RECORDS", {})
     plan, _ = _mixed(14, 1, 2)
     th, tx = torch.zeros(30, 8, 1 << 14), torch.zeros(30, 4, len(plan))
     rec = tfp._fp_launch(plan, 14, th, tx, 64, True, torch.device("cpu"))
@@ -300,7 +300,7 @@ def test_launch_record(monkeypatch):
         == [(r.begin, r.count, r.reg, r.blk) for r in geo.rounds]
     fwd = tfp._fp_launch(plan, 14, th[:1], tx[:1], 64, False,
                          torch.device("cpu"))
-    assert fwd is not rec and fwd[2][1] == 1 and len(tfp._FP_LAUNCHES) == 2
+    assert fwd is not rec and fwd[2][1] == 1 and len(tfp._FP_RECORDS) == 2
 
 
 def _plans():

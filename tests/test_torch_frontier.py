@@ -33,6 +33,7 @@ from diffquantum_tpu_torch.ops import fused_product as tfp
 from diffquantum_tpu_torch.ops.cpx import CP
 from diffquantum_tpu_torch.parallel import train_energy_seeds as t_seeds
 from diffquantum_tpu_torch.train.config import TrainConfig as TConfig
+from diffquantum_tpu_torch.utils import profiling
 
 N = 12
 D = 2**N
@@ -121,7 +122,8 @@ def test_k5_plain_matches_jax_kernel(form, jax_slabs):
         XQ, N, KINDS)
     for a, b_ in zip((gp.re, gp.im, gud, gtx), tg):
         torch.testing.assert_close(a, b_)
-    assert tfc.K5_FWD_LAUNCHES == 0 and tfc.K5_BWD_LAUNCHES == 0
+    launched = profiling.counters()
+    assert launched["k5_forward"] == 0 and launched["k5_backward"] == 0
 
 
 def test_k5_contract_checks():
@@ -214,4 +216,5 @@ def test_train_energy_seeds_on_the_forced_route(forced):
     assert tr.losses.shape == jr.losses.shape == (2, 2)
     np.testing.assert_allclose(tr.losses, jr.losses, rtol=0, atol=5e-5)
     assert tr.best_seed == jr.best_seed
-    assert tfp.K3_FWD_LAUNCHES == 0 and tfc.K5_FWD_LAUNCHES == 0
+    launched = profiling.counters()
+    assert launched["k3_forward"] == 0 and launched["k5_forward"] == 0

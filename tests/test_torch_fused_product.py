@@ -15,6 +15,7 @@ from diffquantum_tpu.ops import fused_product as jfp
 from diffquantum_tpu.ops.cpx import CP as JCP
 from diffquantum_tpu_torch.ops import fused_product as tfp
 from diffquantum_tpu_torch.ops.cpx import CP
+from diffquantum_tpu_torch.utils import profiling
 
 N = 10
 D = 2**N
@@ -69,7 +70,8 @@ def test_k1_plain_matches_jax_kernel(plan, n_steps):
                           tg, jg):
         assert a.shape == b.shape, name
         _rel_close(a.numpy(), np.asarray(b), 1e-4)
-    assert tfp.FWD_LAUNCHES == 0 and tfp.BWD_LAUNCHES == 0
+    launched = profiling.counters()
+    assert launched["k1_forward"] == 0 and launched["k1_backward"] == 0
 
 
 def test_plan_table_conventions():
@@ -133,14 +135,16 @@ def test_k1_kernel_matches_plain_on_card():
         xq, kinds, psi, th, tx, lam = _inputs(plan, 5, seed=1)
         cu = [torch.tensor(v, device="cuda") for v in (psi[0], psi[1], th,
                                                        tx)]
-        f0, b0 = tfp.FWD_LAUNCHES, tfp.BWD_LAUNCHES
+        before = profiling.counters()
         ts = [t.clone().requires_grad_(True) for t in cu]
         out = tfp.fused_product_evolve(CP(ts[0], ts[1]), ts[2], ts[3], xq,
                                        N, kinds)
         lam_t = [torch.tensor(v, device="cuda") for v in lam]
         got = torch.autograd.grad((out.re, out.im), ts, lam_t)
         torch.cuda.synchronize()
-        assert (tfp.FWD_LAUNCHES - f0, tfp.BWD_LAUNCHES - b0) == (1, 1)
+        now = profiling.counters()
+        assert (now["k1_forward"] - before["k1_forward"],
+                now["k1_backward"] - before["k1_backward"]) == (1, 1)
         ref = tfp.fused_product_evolve_plain(CP(cu[0], cu[1]), cu[2], cu[3],
                                              xq, N, kinds)
         _rel_close(out.re.detach().cpu().numpy(), ref.re.cpu().numpy(),

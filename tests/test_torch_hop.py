@@ -24,6 +24,7 @@ from diffquantum_tpu_torch.ops import fused_chunked as tfc
 from diffquantum_tpu_torch.ops import fused_mega_hop as tmh
 from diffquantum_tpu_torch.ops import fused_product as tfp
 from diffquantum_tpu_torch.ops.cpx import CP
+from diffquantum_tpu_torch.utils import profiling
 from test_torch_pk_plan import apply_passes
 
 
@@ -339,7 +340,8 @@ def test_k6_plain_matches_jax_kernel(case, monkeypatch):
         ref, CP(*map(torch.tensor, lam)), *args, pos, n, kinds)
     for a, b_ in zip((gp.re, gp.im, gud, gtx), tg):
         torch.testing.assert_close(a, b_)
-    assert tmh.K6_FWD_LAUNCHES == 0 and tmh.K6_BWD_LAUNCHES == 0
+    launched = profiling.counters()
+    assert launched["k6_forward"] == 0 and launched["k6_backward"] == 0
 
 
 def test_k6_contract_checks(monkeypatch):

@@ -36,6 +36,7 @@ from diffquantum_tpu_torch.ops.cpx import CP
 from diffquantum_tpu_torch.parallel import train_energy_seeds as t_seeds
 from diffquantum_tpu_torch.pulses.envelope import SimpleEnvelope as TEnvelope
 from diffquantum_tpu_torch.train.config import TrainConfig as TConfig
+from diffquantum_tpu_torch.utils import profiling
 
 
 def _rel_close(got, want, rel):
@@ -162,7 +163,7 @@ def test_energy_and_grad_on_the_k6_route(forced):
     # K6 is its own integrator: the eager engine agrees only to O(dt^2),
     # so it is no tight reference here; the plain dispatcher (the card's
     # reference) is the same chain
-    assert tprod._hop_mega(th) and tmh.K6_FWD_LAUNCHES == 0
+    assert tprod._hop_mega(th) and profiling.counters()["k6_forward"] == 0
 
 
 def _jax_seed_init(envelope, cfg, n_seeds):
@@ -184,7 +185,7 @@ def test_train_energy_seeds_on_the_k6_route(forced):
     assert tr.losses.shape == jr.losses.shape == (2, 2)
     np.testing.assert_allclose(tr.losses, jr.losses, rtol=0, atol=5e-5)
     assert tr.best_seed == jr.best_seed
-    assert tmh.K6_BATCHED_FWD_LAUNCHES == 0
+    assert profiling.counters()["k6_batched_forward"] == 0
 
 
 def test_mega_hop_dispatch_plain_is_the_route(forced):

@@ -21,8 +21,8 @@ from diffquantum_tpu.gradients import mc as jmc
 from diffquantum_tpu.pulses import envelope as jenv
 from diffquantum_tpu_torch.gradients import fd as tfd
 from diffquantum_tpu_torch.gradients import mc as tmc
-from diffquantum_tpu_torch.ops import fused_product as tfp
 from diffquantum_tpu_torch.pulses import envelope as tenv
+from diffquantum_tpu_torch.utils import profiling
 from torch_estimators_common import N, _problems, _rel_close
 
 
@@ -78,7 +78,8 @@ def test_mc_energy_grad_f32_fused_wrapper(chain):
                              torch.tensor(coeff), tp.psi0, tp.T, None, 6,
                              s=1.3, chain=chain, backend="product_fused")
     _rel_close(got.numpy(), want, 1e-4)
-    assert tfp.FWD_LAUNCHES == 0 and tfp.K2_FWD_LAUNCHES == 0
+    launched = profiling.counters()
+    assert launched["k1_forward"] == 0 and launched["k2_forward"] == 0
 
 
 @pytest.mark.parametrize("backend", ["product", "product_fused"])

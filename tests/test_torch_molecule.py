@@ -26,7 +26,7 @@ from diffquantum_tpu.models import molecule as jmol
 from diffquantum_tpu.ops import cpx as jcpx
 from diffquantum_tpu_torch.gradients import adjoint as tadj
 from diffquantum_tpu_torch.models import molecule as tmol
-from diffquantum_tpu_torch.ops import fused_product as tfp
+from diffquantum_tpu_torch.utils import profiling
 
 R_EQ = 0.7414
 H3P = ([(0, 0, 0), (0.9, 0, 0), (0.45, 0.45 * np.sqrt(3), 0)], 1)
@@ -222,4 +222,5 @@ def test_energy_and_grad_matches_jax(which):
     jg = np.asarray(jg)
     np.testing.assert_allclose(tg.numpy(), jg, rtol=0,
                                atol=1e-4 * np.abs(jg).max())
-    assert tfp.FWD_LAUNCHES == 0 and tfp.BWD_LAUNCHES == 0  # plain path
+    launched = profiling.counters()   # the plain path: no launch
+    assert launched["k1_forward"] == 0 and launched["k1_backward"] == 0

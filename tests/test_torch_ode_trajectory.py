@@ -32,7 +32,7 @@ from diffquantum_tpu_torch.dynamics import ode as tode
 from diffquantum_tpu_torch.dynamics import product as tprod
 from diffquantum_tpu_torch.models import maxcut as tmaxcut
 from diffquantum_tpu_torch.ops import cpx as tcpx
-from diffquantum_tpu_torch.ops import taylor_apply as tta
+from diffquantum_tpu_torch.utils import profiling
 from test_torch_lindblad import (F64, VAL_ATOL, _grad_close, _j, _t,
                                  dense_twin, structured_problem)
 
@@ -324,11 +324,11 @@ def test_mcwf_dense_matches_jax():
     (_, jps), jg = jax.value_and_grad(jloss, has_aux=True)(
         jnp.asarray(p["coeff"]))
     c = torch.tensor(p["coeff"], requires_grad=True)
-    tta.APPLY_RECURRENCE_CALLS = 0
+    before = profiling.counters()["apply_recurrence"]
     ps = tlb.evolve_mcwf(td, te, c, _t(plus), tc, 0.0, T, horizon=T,
                          n_steps=ns, n_traj=n_traj,
                          draws=_port_draws(uni, gum))
-    assert tta.APPLY_RECURRENCE_CALLS == ns
+    assert profiling.counters()["apply_recurrence"] - before == ns
     torch.mean(torch.sum(tcpx.abs2(ps) * torch.tensor(w), dim=-1)).backward()
     _states_close(ps, jps)
     _grad_close(c.grad, jg)

@@ -24,6 +24,7 @@ from diffquantum_tpu_torch.dynamics import hamiltonian as tham
 from diffquantum_tpu_torch.dynamics import product as tprod
 from diffquantum_tpu_torch.ops import fused_product as tfp
 from diffquantum_tpu_torch.ops.cpx import CP
+from diffquantum_tpu_torch.utils import profiling
 from test_torch_pk_plan import apply_passes
 
 N = 10
@@ -178,7 +179,8 @@ def test_k3_plain_matches_jax_kernel(plan, n_steps, b):
         torch.tensor(signs), xq, N, kinds)
     for a, b_ in zip((gp.re, gp.im, gud, gtx), tg):
         torch.testing.assert_close(a, b_)
-    assert tfp.K3_FWD_LAUNCHES == 0 and tfp.K3_BWD_LAUNCHES == 0
+    launched = profiling.counters()
+    assert launched["k3_forward"] == 0 and launched["k3_backward"] == 0
 
 
 def test_k3_wrapper_rejects_bad_inputs():

@@ -35,6 +35,7 @@ from diffquantum_tpu_torch.ops.cpx import CP
 from diffquantum_tpu_torch.parallel import train_energy_seeds as t_seeds
 from diffquantum_tpu_torch.pulses.envelope import SimpleEnvelope
 from diffquantum_tpu_torch.train.config import TrainConfig as TConfig
+from diffquantum_tpu_torch.utils import profiling
 
 
 # ---------------------------------------------------------------------------
@@ -192,10 +193,10 @@ def test_apply_recurrence_11q_f64_matches_jax():
 
     th, te = _dense_11q("torch")
     tpsi = tcpx.from_complex(psi, dtype=torch.float64, device="cpu")
-    before = tta.APPLY_RECURRENCE_CALLS
+    before = profiling.counters()["apply_recurrence"]
     t_out = tprop.evolve(th, te, torch.tensor(c), tpsi, 0.0, T, horizon=T,
                          n_steps=n_steps, backend="apply")
-    assert tta.APPLY_RECURRENCE_CALLS - before == n_steps
+    assert profiling.counters()["apply_recurrence"] - before == n_steps
     t_val, t_grad = t_eag(th, te, torch.tensor(w), torch.tensor(c), tpsi,
                           T, n_steps, backend="apply")
     np.testing.assert_allclose(tcpx.to_complex(t_out),
@@ -204,4 +205,5 @@ def test_apply_recurrence_11q_f64_matches_jax():
     scale = float(np.max(np.abs(np.asarray(j_grad))))
     np.testing.assert_allclose(t_grad.numpy(), np.asarray(j_grad), rtol=0,
                                atol=1e-10 * scale)
-    assert tta.K7_FWD_LAUNCHES == 0 and tta.K7_BWD_LAUNCHES == 0
+    launched = profiling.counters()
+    assert launched["k7_forward"] == 0 and launched["k7_backward"] == 0
