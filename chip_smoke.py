@@ -645,7 +645,8 @@ def pk_geometry(n, n_diag, members):
     """The pass kernels' plan (``pk_plan``) at a shape, both directions,
     as one line: the splits k, k2 and columns lc, and per pass kind its
     tile size, register bits, threads, ring stages and blocks per member
-    (a pass of one round runs direct, without its ring)."""
+    (a pass of one round runs direct, without its ring; the forward's
+    staged passes on the TMA ring, with its depth and grid)."""
     import torch
     from diffquantum_tpu_torch.ops import fused_product as tfp
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -657,8 +658,17 @@ def pk_geometry(n, n_diag, members):
                  if p is not None]
         parts.append(f"{part} k={g.k} k2={g.k2} lc={g.lc}: " + ", ".join(
             f"{name} 2^{p.lb} r={p.rbits} {p.threads}t S={p.stages} "
-            f"{p.blocks} blocks" for name, p in kinds))
+            f"{p.blocks} blocks" + (
+                f" (TMA ring S={p.ring_stages}, {p.ring_blocks} blocks)"
+                if p.ring_stages else "") for name, p in kinds))
     return "; ".join(parts)
+
+
+def ring_passes():
+    """The K3-K6 forward passes launched on the TMA ring so far (the
+    ``pk_forward_ring`` counter)."""
+    from diffquantum_tpu_torch.utils import profiling
+    return profiling.counters()["pk_forward_ring"]
 
 
 def phase_packed_kernels():
@@ -723,11 +733,12 @@ def phase_packed_kernels():
         args = (h0th, signs, qubits, n, kinds)
         leaves = [t.clone().requires_grad_(True)
                   for t in (psi0.re, psi0.im, ud, tx)]
-        before = read_counts()
+        before, ring0 = read_counts(), ring_passes()
         t0 = time.perf_counter()
         out = entry(CP(leaves[0], leaves[1]), leaves[2], leaves[3], *args)
         torch.cuda.synchronize()
         t_k = time.perf_counter() - t0
+        ring = ring_passes() - ring0
         ref = plain(psi0, ud, tx, *args)
         lam = CP(2.0 * w * ref.re, 2.0 * w * ref.im)  # d<w>/dpsi
         got = torch.autograd.grad((out.re, out.im), leaves, (lam.re, lam.im))
@@ -749,7 +760,7 @@ def phase_packed_kernels():
             f"[{pk_geometry(n, ud.shape[-1] - 1, b or 1)}], forward max abs "
             f"err {fwd_err!r} (atol {TOL_PK['fwd']}); backward relative "
             f"errors {rels!r} (bound {TOL_PK['grad']}); first launch + sync "
-            f"{t_k * 1e3:.3f} ms")
+            f"{t_k * 1e3:.3f} ms; {ring} forward passes on the TMA ring")
         if main:
             errs[kernel] = (fwd_err, bwd_abs)
         del out, ref, got, leaves, gp, gud, gtx, lam
@@ -1429,11 +1440,12 @@ def phase_hop_kernels():
         args = (h0th, signs, pos, n, kinds)
         leaves = [t.clone().requires_grad_(True)
                   for t in (psi0.re, psi0.im, ud, tx)]
-        before = read_counts()
+        before, ring0 = read_counts(), ring_passes()
         t0 = time.perf_counter()
         out = entry(CP(leaves[0], leaves[1]), leaves[2], leaves[3], *args)
         torch.cuda.synchronize()
         t_k = time.perf_counter() - t0
+        ring = ring_passes() - ring0
         ref = plain(psi0, ud, tx, *args)
         w = card_weights(ref.re.shape[-1], seed)
         lam = CP(2.0 * w * ref.re, 2.0 * w * ref.im)  # d<w>/dpsi
@@ -1457,7 +1469,8 @@ def phase_hop_kernels():
             f"[{pk_geometry(n, ud.shape[-1] - 1, b or 1)}], forward max "
             f"abs err {fwd_err!r} (atol {TOL_HOP['fwd']}); backward "
             f"relative errors {rels!r} (bound {TOL_HOP['grad']}); first "
-            f"launch + sync {t_k * 1e3:.3f} ms")
+            f"launch + sync {t_k * 1e3:.3f} ms; {ring} forward passes on the "
+            f"TMA ring")
         if main:
             errs["k6"] = (fwd_err, bwd_abs)
         del out, ref, got, leaves, gp, gud, gtx, lam, psi0, h0th, signs, w
@@ -2541,12 +2554,13 @@ def phase_chunked_kernels():
         args = (h0th, signs, qubits, n, kinds)
         leaves = [t.clone().requires_grad_(True)
                   for t in (psi0.re, psi0.im, ud, tx)]
-        before = read_counts()
+        before, ring0 = read_counts(), ring_passes()
         t0 = time.perf_counter()
         out = tfc.chunked_evolve(CP(leaves[0], leaves[1]), leaves[2],
                                  leaves[3], *args)
         torch.cuda.synchronize()
         t_k = time.perf_counter() - t0
+        ring = ring_passes() - ring0
         ref = tfc.chunked_evolve_plain(psi0, ud, tx, *args)
         lam = CP(2.0 * w * ref.re, 2.0 * w * ref.im)  # d<w>/dpsi
         got = torch.autograd.grad((out.re, out.im), leaves, (lam.re, lam.im))
@@ -2565,7 +2579,7 @@ def phase_chunked_kernels():
             f"[{pk_geometry(n, ud.shape[-1] - 1, 1)}], forward max abs err "
             f"{fwd_err!r} (atol {TOL_PK['fwd']}); backward relative errors "
             f"{rels!r} (bound {TOL_PK['grad']}); first launch + sync "
-            f"{t_k * 1e3:.3f} ms")
+            f"{t_k * 1e3:.3f} ms; {ring} forward passes on the TMA ring")
         if n == 24:
             errs["k4"] = (fwd_err, bwd_abs)
         del out, ref, got, leaves, gp, gud, gtx, lam

@@ -74,6 +74,25 @@
 //    whose ops take one round runs direct (stages 0): its threads load
 //    their amplitudes from global memory, apply the round and store them,
 //    with no shared memory and no barrier.
+//  - The forward's staged passes on a warp-specialised TMA ring
+//    (pass_ring; the backward keeps the ring above). In that ring every
+//    thread copied, waited on its copies and passed a block barrier each
+//    tile, so inside a block loads, rounds and stores never overlapped,
+//    and a 20q pass at B = 80 moved 1.1 TB/s. Here one producer thread
+//    keeps tensor-map (TMA) loads of the next tiles in flight into a ring
+//    of `stages` buffers, each with a full and a done mbarrier; the
+//    consumer warps run the rounds with a named barrier among themselves
+//    only; when they are done with a tile the producer stores it by TMA
+//    and reuses the buffer once the store has read it, so no consumer
+//    waits on device memory. Blocks are persistent over the pass's member
+//    x tile pairs: about two an SM, each a contiguous member-major share,
+//    rebuilding its tables only when its member changes. A tile pass's
+//    tile is 2^k consecutive words of each plane, loaded through a
+//    [rows, 32 words] view with the TMA's 128-byte swizzle, which is swz
+//    below; a middle or strided tile is 2^rb rows of 2^lc words at a
+//    2^k1-word stride, one 2-D box of a [rows, 2^k1] view, unswizzled
+//    (rows of 32-256 bytes, under the swizzle's 128-byte span, and their
+//    rounds' lanes mostly run along the rows' words anyway).
 //  - Ops in registers. The host groups a pass's ordered ops into rounds of
 //    r bits (an op row's sixth column is its round's mask). In a round
 //    every thread gathers the 2^r amplitudes of one group (one fixed value
@@ -94,6 +113,7 @@
 //    and a last launch sums them in a fixed order (no atomics). Offsets
 //    are size_t: B*d passes 2^31 at 24 qubits from B = 128 up.
 
+#include <cuda.h>  // CUtensorMap and its encoder's types (no driver link)
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -102,7 +122,7 @@ namespace {
 constexpr int kMaxOps = 128;
 constexpr int kOpCols = 6;    // slot, kind, mask a, mask b, scale in halves,
                               // round mask
-constexpr int kPassCols = 9;  // see Pass
+constexpr int kPassCols = 10;  // see Pass
 constexpr int kMaxDiag = 120;
 constexpr int kPlaneBits = 30;
 constexpr int kMaxSignPlanes = 4;
@@ -111,6 +131,10 @@ constexpr int kMaxThreads = 512;
 constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kMaxRBits = 5;      // forward; the backward takes <= 4
 constexpr int kMaxStages = 4;
+constexpr int kMaxRing = 4;         // stages of the forward's TMA ring
+constexpr int kRingConsumers = 256; // its consumer threads, at most
+constexpr int kRingThreads = kRingConsumers + 32;  // and the producer warp
+constexpr unsigned kRingAlign = 1024;  // the 128-byte swizzle's period
 constexpr int kCrossThreads = 256;
 // static shared memory of the two pass kernels, mirrored by
 // ops/fused_product.py::PK_STATIC_BYTES (the plan's budget)
@@ -124,6 +148,7 @@ enum PassKind : int { kTile = 0, kStrided = 1, kCross = 2, kMid = 3 };
 struct Pass {
   int kind, op_begin, op_count, blocks, part_off, part_width;
   int rbits, threads, stages;  // tile/middle/strided: the plan's geometry
+  int ring;  // 1: the forward's TMA ring, `blocks` over member x tile
 };
 static_assert(sizeof(Pass) == kPassCols * sizeof(int), "pass row");
 
@@ -322,16 +347,30 @@ __device__ void store_tile(const float* buf, const PassArgs& a, unsigned t,
   }
 }
 
-// The pass's op rows and their angles for member blockIdx.y, and with a
-// phase the stage row, its base phase and its unit-phase tables (lut:
-// entry v of byte table q of plane p, at p * kLutEntries + q * 256 + v,
-// is e^{+i phi}, phi = 2 sum of a_k over the set bits of v, k = 30 p +
-// 8 q + bit). Ends with a barrier.
-__device__ void load_tables(OpTable& tab, PhaseTable& ph, float2* lut,
-                            const Chain& ch, const PassArgs& a) {
-  const unsigned b = blockIdx.y;
+// The threads that build a block's tables and the barrier they pass: the
+// whole block, or the TMA ring's consumers alone (named barrier 1).
+struct BlockSync {
+  __device__ __forceinline__ void operator()() const { __syncthreads(); }
+};
+struct ConsumerSync {
+  unsigned n;  // consumer threads, a multiple of 32
+  __device__ __forceinline__ void operator()() const {
+    asm volatile("bar.sync 1, %0;" ::"r"(n) : "memory");
+  }
+};
+
+// The pass's op rows and their angles for member b, and with a phase the
+// stage row, its base phase and its unit-phase tables (lut: entry v of
+// byte table q of plane p, at p * kLutEntries + q * 256 + v, is
+// e^{+i phi}, phi = 2 sum of a_k over the set bits of v, k = 30 p + 8 q +
+// bit), built by threads tid < nthr. Ends with sync().
+template <class Sync>
+__device__ void load_tables_for(OpTable& tab, PhaseTable& ph, float2* lut,
+                                const Chain& ch, const PassArgs& a,
+                                unsigned b, unsigned tid, unsigned nthr,
+                                Sync sync) {
   const float* tx = ch.tx + ((size_t)a.stage * ch.B + b) * ch.n_x;
-  for (int o = threadIdx.x; o < a.n_ops; o += blockDim.x) {
+  for (int o = tid; o < a.n_ops; o += nthr) {
     const int* op = a.ops + kOpCols * o;
     tab.kind[o] = op[1];
     tab.ma[o] = (unsigned)op[2];
@@ -341,25 +380,24 @@ __device__ void load_tables(OpTable& tab, PhaseTable& ph, float2* lut,
     sincosf(tab.scale[o] * __ldg(tx + op[0]), &tab.s[o], &tab.c[o]);
   }
   if (!a.phase) {
-    __syncthreads();
+    sync();
     return;
   }
   const float* u = ch.udm + ((size_t)a.stage * ch.B + b) * (ch.n_diag + 2);
-  for (int i = threadIdx.x; i < ch.n_diag + 2; i += blockDim.x)
-    ph.a[i] = __ldg(u + i);
-  __syncthreads();
-  if (threadIdx.x < 32) {  // base = off + sum_k a_k, lane order fixed
+  for (int i = tid; i < ch.n_diag + 2; i += nthr) ph.a[i] = __ldg(u + i);
+  sync();
+  if (tid < 32) {  // base = off + sum_k a_k, lane order fixed
     float v = 0.f;
-    for (int i = threadIdx.x; i < ch.n_diag; i += 32) v += ph.a[i];
+    for (int i = tid; i < ch.n_diag; i += 32) v += ph.a[i];
     v = warp_sum(v);
-    if (threadIdx.x == 0) {
+    if (tid == 0) {
       float s, c;
       sincosf(ph.a[ch.n_diag] + v, &s, &c);
       ph.c0 = c;
       ph.s0 = -s;
     }
   }
-  for (int e = threadIdx.x; e < a.signs * kLutEntries; e += blockDim.x) {
+  for (int e = tid; e < a.signs * kLutEntries; e += nthr) {
     const int tbl = e >> 8;  // plane tbl / 4, byte tbl % 4
     const int k0 = (tbl >> 2) * kPlaneBits + (tbl & 3) * 8;
     const int nb = max(0, min(min(8, kPlaneBits - (tbl & 3) * 8),
@@ -375,7 +413,14 @@ __device__ void load_tables(OpTable& tab, PhaseTable& ph, float2* lut,
     sincosf(2.f * phi, &s, &c);
     lut[e] = make_float2(c, s);
   }
-  __syncthreads();
+  sync();
+}
+
+// load_tables_for member blockIdx.y by the whole block
+__device__ void load_tables(OpTable& tab, PhaseTable& ph, float2* lut,
+                            const Chain& ch, const PassArgs& a) {
+  load_tables_for(tab, ph, lut, ch, a, blockIdx.y, threadIdx.x, blockDim.x,
+                  BlockSync{});
 }
 
 // ---------------------------------------------------------------------------
@@ -481,8 +526,8 @@ __device__ __forceinline__ float bwd_op(Regs<R, 4>& x, bool y, float c,
   return g;
 }
 
-// Dispatch an op to its compile-time ranks (a: rank of mask a; b: rank of
-// mask b for a hop, -1 otherwise); returns the backward's partial.
+// Dispatch a backward op to its compile-time ranks (a: rank of mask a; b:
+// rank of mask b for a hop, -1 otherwise); returns its partial.
 template <int R, int Q, int A = 0, int B = -1>
 __device__ __forceinline__ float apply_op(Regs<R, Q>& x, int a, int b,
                                           bool y, float c, float s) {
@@ -492,14 +537,7 @@ __device__ __forceinline__ float apply_op(Regs<R, Q>& x, int a, int b,
     return apply_op<R, Q, A + 1, -1>(x, a, b, y, c, s);
   } else {
     if (a == A && b == B && A != B) {
-      if constexpr (A != B) {
-        if constexpr (Q == 2) {
-          fwd_op<R, A, B>(x, y, c, s);
-          return 0.f;
-        } else {
-          return bwd_op<R, A, B>(x, y, c, s);
-        }
-      }
+      if constexpr (A != B) return bwd_op<R, A, B>(x, y, c, s);
     }
     return apply_op<R, Q, A, B + 1>(x, a, b, y, c, s);
   }
@@ -517,6 +555,54 @@ __device__ __forceinline__ float apply_row(Regs<R, Q>& x, const OpTable& tab,
   const int a = rank_in(M, tab.ma[o]);
   const int b = kind == kHop ? rank_in(M, tab.mb[o]) : -1;
   return apply_op<R, Q>(x, a, b, kind == kY, tab.c[o], tab.s[o]);
+}
+
+// A forward op row on a thread's amplitudes (fwd_op's products),
+// dispatched by kind first, so that an X or a Y row issues only its own
+// products rather than both under predicates, then an X/Y row by its rank
+// alone and a hop by its two.
+template <int R, bool Y, int A = 0>
+__device__ __forceinline__ void fwd_rank(Regs<R, 2>& x, int a, float c,
+                                         float s) {
+  if constexpr (A < R) {
+    if (a == A)
+      fwd_op<R, A, -1>(x, Y, c, s);
+    else
+      fwd_rank<R, Y, A + 1>(x, a, c, s);
+  }
+}
+
+template <int R, int A = 0, int B = 0>
+__device__ __forceinline__ void fwd_hop(Regs<R, 2>& x, int a, int b, float c,
+                                        float s) {
+  if constexpr (A < R) {
+    if constexpr (B >= R) {
+      fwd_hop<R, A + 1, 0>(x, a, b, c, s);
+    } else {
+      if constexpr (A != B) {
+        if (a == A && b == B) {
+          fwd_op<R, A, B>(x, false, c, s);
+          return;
+        }
+      }
+      fwd_hop<R, A, B + 1>(x, a, b, c, s);
+    }
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void apply_row_fwd(Regs<R, 2>& x,
+                                              const OpTable& tab, int o,
+                                              unsigned M) {
+  const int kind = tab.kind[o];
+  const int a = rank_in(M, tab.ma[o]);
+  const float c = tab.c[o], s = tab.s[o];
+  if (kind == kHop)
+    fwd_hop<R>(x, a, rank_in(M, tab.mb[o]), c, s);
+  else if (kind == kY)
+    fwd_rank<R, true>(x, a, c, s);
+  else
+    fwd_rank<R, false>(x, a, c, s);
 }
 
 // A round's group for thread tid: base (tid's bits spread over the bits
@@ -537,6 +623,15 @@ struct Group {
       sbit[r] = swz(bit[r]);
     }
     sbase = swz(base);
+  }
+  // the same group in an unswizzled tile when !swizzled (the TMA ring's
+  // middle and strided tiles)
+  __device__ __forceinline__ Group(unsigned M, unsigned tid, bool swizzled)
+      : Group(M, tid) {
+    if (swizzled) return;
+    sbase = base;
+#pragma unroll
+    for (int r = 0; r < R; ++r) sbit[r] = bit[r];
   }
   // local index of register slot i
   __device__ __forceinline__ unsigned at(int i) const {
@@ -730,7 +825,7 @@ pass_forward(PassArgs a, Chain ch) {
             x.v[1][i] = z.x * xi + z.y * xr;
           }
         }
-        for (int q = o; q < e; ++q) apply_row<R, 2>(x, sh.tab, q, M);
+        for (int q = o; q < e; ++q) apply_row_fwd<R>(x, sh.tab, q, M);
         scatter<R, 2>(x, g, site, direct);
       }
       if (!direct) __syncthreads();
@@ -740,6 +835,217 @@ pass_forward(PassArgs a, Chain ch) {
       store_tile(site.buf, a, t, 2, mo);
       __syncthreads();
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the forward's TMA ring: mbarriers, bulk tensor copies, the kernel
+// ---------------------------------------------------------------------------
+
+// a pass's tensor maps: the state planes (re, im) and, for a tile pass,
+// the sign planes
+struct RingMaps {
+  CUtensorMap pl[2];
+  CUtensorMap signs;
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the mbarrier's phase of this parity has completed (a wait
+// of 2^30 tries, seconds, means a copy that never lands: trap rather than
+// hang the card)
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  for (unsigned tries = 0;; ++tries) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == (1u << 30)) __trap();
+  }
+}
+
+// box (c0, c1) of a 2-D tensor map into shared memory, counted on bar
+__device__ __forceinline__ void tma_load(unsigned dst, const CUtensorMap* map,
+                                         int c0, int c1, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(c0), "r"(c1),
+      "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          unsigned src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}],"
+      " [%1];" ::"l"(reinterpret_cast<unsigned long long>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Pair w's box in its pass's views: a tile pass's tile is 2^lb / 32 rows
+// of a [B d / 32, 32] view; a middle or strided tile 2^rb rows of 2^lcp
+// words in a [B d / 2^k1, 2^k1] view (amp_index's map, member b's rows
+// first).
+__device__ __forceinline__ void ring_box(const PassArgs& a, const Chain& ch,
+                                         unsigned w, int& c0, int& c1,
+                                         unsigned& t) {
+  const unsigned tbits = (unsigned)(ch.n - a.lb);
+  const unsigned b = w >> tbits;
+  t = w & ((1u << tbits) - 1u);
+  if (a.kind == kTile) {
+    c0 = 0;
+    c1 = (int)((b << (ch.n - 5)) + (t << (a.lb - 5)));
+  } else {
+    const unsigned tl = a.k1 - a.lcp;
+    c0 = (int)((t & ((1u << tl) - 1u)) << a.lcp);
+    c1 = (int)((b << (ch.n - a.k1)) + ((t >> tl) << a.rb));
+  }
+}
+
+// The producer: for pair j of the block's share, once the consumers are
+// done with pair j - S in buffer j % S, store it and, when that store has
+// read the buffer, load pair j there (the tile pass's sign planes beside
+// it); then drain the stores.
+__device__ void ring_produce(const PassArgs& a, const Chain& ch,
+                             const RingMaps& maps, unsigned ring,
+                             unsigned words, unsigned full, unsigned done,
+                             unsigned w0, unsigned n_items) {
+  const unsigned S = (unsigned)a.stages, L4 = 4u << a.lb;
+  for (unsigned j = 0; j < n_items + S; ++j) {
+    const unsigned s = j % S, buf = ring + 4u * s * words;
+    int c0, c1;
+    unsigned t;
+    if (j >= S) {
+      mbar_wait(done + 8u * s, ((j - S) / S) & 1u);
+      ring_box(a, ch, w0 + j - S, c0, c1, t);
+      tma_store(&maps.pl[0], buf, c0, c1);
+      tma_store(&maps.pl[1], buf + L4, c0, c1);
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    }
+    if (j >= n_items) continue;
+    if (j >= S) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    mbar_expect(full + 8u * s, 4u * words);
+    ring_box(a, ch, w0 + j, c0, c1, t);
+    tma_load(buf, &maps.pl[0], c0, c1, full + 8u * s);
+    tma_load(buf + L4, &maps.pl[1], c0, c1, full + 8u * s);
+    for (int p = 0; p < a.signs; ++p)
+      tma_load(buf + (2u + p) * L4, &maps.signs, 0,
+               (int)(((unsigned)p << (ch.n - 5)) + (t << (a.lb - 5))),
+               full + 8u * s);
+  }
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// A staged tile, middle or strided forward pass on the TMA ring: the
+// block's threads below C = blockDim.x - 32 are consumers, the last warp
+// the producer (one lane issues every copy). The consumers walk the same
+// pairs: per pair, the tables when its member changes, a wait on its
+// buffer's full barrier, then the rounds as pass_forward's (a named
+// barrier after each, the last one after fencing the buffer for the TMA
+// store), and an arrival on its done barrier.
+template <int R>
+__global__ void __launch_bounds__(kRingThreads, R <= 4 ? 2 : 1)
+pass_ring(PassArgs a, Chain ch, const __grid_constant__ RingMaps maps) {
+  extern __shared__ __align__(16) float dyn_all[];
+  __shared__ FwdShared sh;
+  __shared__ __align__(8) unsigned long long bars[2 * kMaxRing];
+  float2* lut = reinterpret_cast<float2*>(dyn_all);
+  const unsigned tid = threadIdx.x, C = blockDim.x - 32u;
+  const unsigned L = 1u << a.lb, S = (unsigned)a.stages;
+  const unsigned words = (2u + (unsigned)a.signs) << a.lb;
+  // the ring: past the phase tables, at the swizzle's period
+  const unsigned base = smem_addr(dyn_all);
+  const unsigned ring =
+      (base + 8u * a.signs * kLutEntries + kRingAlign - 1u) & ~(kRingAlign - 1u);
+  float* buf0 = dyn_all + (ring - base) / 4u;
+  const unsigned full = smem_addr(bars), done = full + 8u * kMaxRing;
+  // the block's contiguous share of the B x tiles pairs, member-major
+  const unsigned long long W = (unsigned long long)ch.B * a.tiles;
+  const unsigned w0 = (unsigned)(W * blockIdx.x / gridDim.x);
+  const unsigned n_items =
+      (unsigned)(W * (blockIdx.x + 1) / gridDim.x) - w0;
+  if (tid == 0) {
+    for (unsigned s = 0; s < S; ++s) {
+      mbar_init(full + 8u * s, 1);
+      mbar_init(done + 8u * s, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid >= C) {
+    if (tid == C)
+      ring_produce(a, ch, maps, ring, words, full, done, w0, n_items);
+    return;
+  }
+  const ConsumerSync sync{C};
+  const bool act = tid < (L >> R);
+  const bool swizzled = a.kind == kTile;
+  const unsigned tbits = (unsigned)(ch.n - a.lb);
+  unsigned member = ~0u;
+  for (unsigned j = 0; j < n_items; ++j) {
+    const unsigned b = (w0 + j) >> tbits;
+    const unsigned t = (w0 + j) & ((1u << tbits) - 1u);
+    if (b != member) {
+      load_tables_for(sh.tab, sh.ph, lut, ch, a, b, tid, C, sync);
+      member = b;
+    }
+    const unsigned s = j % S;
+    mbar_wait(full + 8u * s, (j / S) & 1u);
+    const Site site{buf0 + s * words, &a, &ch, (size_t)b << ch.n, L, t};
+    int o = 0;
+    do {
+      const unsigned M = a.n_ops ? sh.tab.round[o] : phase_mask(a.lb, R);
+      int e = o;
+      while (e < a.n_ops && sh.tab.round[e] == M) ++e;
+      if (act) {
+        const Group<R> g(M, tid, swizzled);
+        Regs<R, 2> x;
+        gather<R, 2>(x, g, site, false);
+        if (o == 0 && a.phase) {
+#pragma unroll
+          for (int i = 0; i < (1 << R); ++i) {
+            const float2 z = slot_phase<R, 2>(sh.ph, lut, g, site, false, i);
+            const float xr = x.v[0][i], xi = x.v[1][i];
+            x.v[0][i] = z.x * xr - z.y * xi;
+            x.v[1][i] = z.x * xi + z.y * xr;
+          }
+        }
+        for (int q = o; q < e; ++q) apply_row_fwd<R>(x, sh.tab, q, M);
+        scatter<R, 2>(x, g, site, false);
+      }
+      // the tile's last writes, seen by the TMA store's async proxy
+      if (e >= a.n_ops) asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      sync();
+      o = e;
+    } while (o < a.n_ops);
+    if (tid == 0) mbar_arrive(done + 8u * s);
   }
 }
 
@@ -1004,17 +1310,30 @@ PassFn pass_fn(bool bwd, int r) {
   }
 }
 
+typedef void (*RingFn)(PassArgs, Chain, RingMaps);
+
+// the TMA ring by register bits: 3-5 (a ring's tiles are 2^8 words or
+// more, whose plan takes r >= 3)
+RingFn ring_fn(int r) {
+  switch (r) {
+    case 3: return pass_ring<3>;
+    case 4: return pass_ring<4>;
+    case 5: return pass_ring<5>;
+    default: return nullptr;
+  }
+}
+
 // Each pass kernel's dynamic shared-memory ceiling, raised once per
 // (kernel, device) to what the card leaves beside its static tables.
 struct Raised {
-  PassFn fn;
+  const void* fn;
   int dev;
   size_t limit;
 };
 Raised g_raised[64];
 int g_n_raised = 0;
 
-int dyn_limit(PassFn fn, size_t* limit) {
+int dyn_limit(const void* fn, size_t* limit) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
@@ -1063,6 +1382,93 @@ size_t pass_smem(int kind, int lb, int nq, int signs, int stages) {
          ((size_t)stages * (nq + s) << lb) * sizeof(float);
 }
 
+// the TMA ring's: its phase tables, the alignment of its buffers to the
+// swizzle's period, and its buffers
+size_t ring_smem(int kind, int lb, int signs, int stages) {
+  return pass_smem(kind, lb, 2, signs, stages) + kRingAlign;
+}
+
+// Whether a pass fits the TMA ring's boxes: a tile pass 2^lb / 32 rows of
+// 128 bytes (2^lb words a plane, each plane's buffer on the swizzle's
+// period); a middle or strided pass rows of 16-1024 bytes, at most 256
+// rows, buffers of 128 bytes or more; box coordinates within int.
+bool ring_fits(int kind, const Shape& sh, int n, int B) {
+  if (((size_t)B << n) >> 5 >= ((size_t)1 << 31)) return false;
+  if (kind == kTile) return sh.lb >= 8 && sh.lb <= 13;
+  return sh.lcp >= 2 && sh.lcp <= 8 && sh.rb <= 8 && sh.lb >= 5;
+}
+
+// cuTensorMapEncodeTiled, through the runtime's driver entry point
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 2-D map of 4-byte words: rows of `cols` words, `rows` of them, boxes
+// of box_rows x box_cols; swizzled in 128 bytes or not. The L2 fetches
+// 256-byte lines for a tile pass's contiguous tiles and 128-byte lines for
+// a middle or strided tile's short rows: the next tile reads the line's
+// other half, while 256 bytes would fetch twice what is read.
+int encode_map(CUtensorMap* m, const void* base, size_t cols, size_t rows,
+               int box_cols, int box_rows, bool swizzled, bool ints) {
+  const EncodeTiled f = encode_tiled();
+  if (f == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult r = f(
+      m, ints ? CU_TENSOR_MAP_DATA_TYPE_INT32 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      2, const_cast<void*>(base), dims, strides, box, steps,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swizzled ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+      swizzled ? CU_TENSOR_MAP_L2_PROMOTION_L2_256B
+               : CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The maps of a ring pass of kind `kind` over the state planes (re, im)
+// [B, d] and the sign planes [P, d].
+int ring_maps(RingMaps* m, int kind, float* re, float* im, const int* planes,
+              int n, int k, int k2, int lc, int B, int P) {
+  const Shape sh = pass_shape(kind, n, k, k2, lc);
+  const size_t all = (size_t)B << n;
+  float* pl[2] = {re, im};
+  for (int q = 0; q < 2; ++q) {
+    const int e =
+        kind == kTile
+            ? encode_map(&m->pl[q], pl[q], 32, all >> 5, 32, 1 << (sh.lb - 5),
+                         true, false)
+            : encode_map(&m->pl[q], pl[q], (size_t)1 << sh.k1, all >> sh.k1,
+                         1 << sh.lcp, 1 << sh.rb, false, false);
+    if (e != 0) return e;
+  }
+  if (kind != kTile) return 0;
+  return encode_map(&m->signs, planes, 32, ((size_t)P << n) >> 5, 32,
+                    1 << (sh.lb - 5), true, true);
+}
+
 // The geometry the host's plan gives each pass, checked: splits, local
 // bits, register bits, threads, stages and blocks within the kernels' and
 // the card's limits. (The op rows' round masks, each op's bits inside its
@@ -1078,10 +1484,11 @@ bool bad_chain(const Pass* passes, int n_pass, int n, int k, int k2, int lc,
   const int nq = bwd ? 4 : 2;
   for (int i = 0; i < n_pass; ++i) {
     const Pass& ps = passes[i];
-    if (ps.op_count < 0 || ps.op_count > kMaxOps || ps.blocks < 1)
+    if (ps.op_count < 0 || ps.op_count > kMaxOps || ps.blocks < 1 ||
+        ps.ring < 0 || ps.ring > 1)
       return true;
     if (ps.kind == kCross) {
-      if (ps.op_count != 1) return true;
+      if (ps.op_count != 1 || ps.ring) return true;
       continue;
     }
     if ((ps.kind != kTile && ps.kind != kMid && ps.kind != kStrided) ||
@@ -1093,11 +1500,27 @@ bool bad_chain(const Pass* passes, int n_pass, int n, int k, int k2, int lc,
     if (ps.threads < 32 || ps.threads > kMaxThreads || ps.threads % 32 ||
         ps.threads < (1 << (sh.lb - r)))
       return true;
+    size_t limit = 0;
+    if (ps.ring) {
+      // the TMA ring: forward, staged, at most 256 consumers, a grid of
+      // at most B x tiles blocks
+      if (bwd || ring_fn(r) == nullptr || ps.stages < 1 ||
+          ps.stages > kMaxRing || ps.threads > kRingConsumers ||
+          (size_t)ps.blocks > ((size_t)B << (n - sh.lb)) ||
+          !ring_fits(ps.kind, sh, n, B))
+        return true;
+      if (dyn_limit(reinterpret_cast<const void*>(ring_fn(r)), &limit) != 0)
+        return true;
+      if (ring_smem(ps.kind, sh.lb, signs_staged(n_diag), ps.stages) > limit)
+        return true;
+      continue;
+    }
     if (ps.stages < 0 || ps.stages > kMaxStages ||
         ps.blocks > (1 << (n - sh.lb)))
       return true;
-    size_t limit = 0;
-    if (dyn_limit(pass_fn(bwd, r), &limit) != 0) return true;
+    if (dyn_limit(reinterpret_cast<const void*>(pass_fn(bwd, r)), &limit) !=
+        0)
+      return true;
     if (pass_smem(ps.kind, sh.lb, nq, signs_staged(n_diag), ps.stages) >
         limit)
       return true;
@@ -1105,9 +1528,11 @@ bool bad_chain(const Pass* passes, int n_pass, int n, int k, int k2, int lc,
   return false;
 }
 
-// Launch one tile, middle or strided pass at stage s.
+// Launch one tile, middle or strided pass at stage s (a ring pass with
+// its kind's maps).
 cudaError_t launch_pass(const Pass& p, PassArgs a, const Chain& ch, int s,
-                        int nq, bool bwd, cudaStream_t st) {
+                        int nq, bool bwd, cudaStream_t st,
+                        const RingMaps* maps = nullptr) {
   const Shape sh = pass_shape(p.kind, ch.n, ch.k, ch.k2, ch.lc);
   a.kind = p.kind;
   a.lb = sh.lb;
@@ -1120,6 +1545,12 @@ cudaError_t launch_pass(const Pass& p, PassArgs a, const Chain& ch, int s,
   a.part_off = p.part_off;
   a.width = p.part_width;
   a.diag_col = p.op_count;
+  if (p.ring) {
+    ring_fn(p.rbits)<<<p.blocks, p.threads + 32,
+                       ring_smem(p.kind, sh.lb, a.signs, a.stages), st>>>(
+        a, ch, *maps);
+    return cudaGetLastError();
+  }
   const size_t smem = pass_smem(p.kind, sh.lb, nq, a.signs, a.stages);
   const PassFn fn = pass_fn(bwd, p.rbits);
   fn<<<dim3(p.blocks, ch.B), p.threads, smem, st>>>(a, ch);
@@ -1131,9 +1562,11 @@ cudaError_t launch_pass(const Pass& p, PassArgs a, const Chain& ch, int s,
 extern "C" {
 
 // Forward chain over B states [B, d], updated in place in (re, im), which
-// hold psi_0 on entry and psi_T on return. passes: host table [n_pass, 9]
-// (kind, first op row, op count, blocks per member, partial offset,
-// partial width, register bits, threads, ring stages (0: direct)); ops:
+// hold psi_0 on entry and psi_T on return. passes: host table [n_pass, 10]
+// (kind, first op row, op count, blocks per member (the TMA ring: blocks
+// over all member x tile pairs), partial offset, partial width, register
+// bits, threads (the ring's consumers), ring stages (0: direct), 1 for the
+// TMA ring); ops:
 // device op rows [n_ops, 6] (slot, kind, local mask a, local mask b,
 // scale in halves, round mask); the splits k <= k2 <= n and columns lc
 // (pk_plan); tx: [T, B, n_x], n_x angle slots; drift: 0 when h0th is zero
@@ -1150,6 +1583,16 @@ int dq_pk_forward(float* re, float* im, const float* udm, const float* tx,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Chain ch{udm, tx, h0th, planes, n, k, k2, lc, T, B, n_diag, P, n_x,
                  drift};
+  // one set of tensor maps per pass kind on the ring, for the whole chain
+  RingMaps maps[4];
+  bool mapped[4] = {false, false, false, false};
+  for (int i = 0; i < n_pass; ++i) {
+    if (!ps[i].ring || mapped[ps[i].kind]) continue;
+    const int me = ring_maps(&maps[ps[i].kind], ps[i].kind, re, im, planes,
+                             n, k, k2, lc, B, P);
+    if (me != 0) return me;
+    mapped[ps[i].kind] = true;
+  }
   cudaError_t e = cudaSuccess;
   for (int s = 0; s <= T; ++s) {
     for (int i = 0; i < n_pass; ++i) {
@@ -1168,7 +1611,7 @@ int dq_pk_forward(float* re, float* im, const float* udm, const float* tx,
         a.n_ops = s < T ? p.op_count : 0;
         a.phase = i == 0;
         a.signs = i == 0 ? signs_staged(n_diag) : 0;
-        e = launch_pass(p, a, ch, s, 2, false, st);
+        e = launch_pass(p, a, ch, s, 2, false, st, &maps[p.kind]);
       }
       if (e != cudaSuccess) return (int)e;
     }

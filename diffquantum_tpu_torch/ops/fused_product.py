@@ -50,7 +50,8 @@ several rows (K6's half-angle sweeps), whose scaled gradients add.
 Dispatch: CPU tensors take the plain version, CUDA tensors launch the
 kernel (the counters ``k1_forward`` / ``k1_backward`` of
 :func:`..utils.profiling.count` count K1's launches, ``k2_*`` K2's,
-``k3_*`` K3's, one per chain; each launch, or plain version, is a
+``k3_*`` K3's, one per chain, and ``pk_forward_ring`` the K3-K6 forward
+passes launched on the TMA ring; each launch, or plain version, is a
 ``chain.fwd`` / ``chain.bwd`` span); there is no fallback from one to
 the other. The pass kernels of K3-K6 take their geometry from
 :func:`pk_plan` and their pass and op tables from :func:`_pass_layout`.
@@ -1299,6 +1300,12 @@ PK_MIN_RBITS = {2: 3, 4: 3}
 PK_MAX_RBITS = {2: 5, 4: 4}
 PK_THREADS = {2: 256, 4: 512}
 PK_MAX_STAGES = 3
+# The forward's TMA ring (pass_ring): at most 256 consumer threads and a
+# producer warp a block, 2-4 stages (kMaxRing), its buffers on the 128-byte
+# swizzle's 1024-byte period; box coordinates are ints
+PK_RING_CONSUMERS = 256
+PK_RING_STAGES = (2, 4)
+PK_RING_ALIGN = 1024
 PK_SEG_COLS = 8               # strided rows of 32 bytes where they fit
 PK_MAX_COLS = 6               # up to 256-byte rows
 PK_PASSES = (2, 3)            # passes a step: tile, [middle,] strided
@@ -1320,7 +1327,11 @@ class PassGeom:
     buffers filled by cp.async; ``per_sm`` blocks fit an SM. A pass whose
     ops take one round runs direct instead (:func:`_pass_layout`: stages
     0, no ring), with ``direct_blocks`` blocks per member: as many as the
-    SMs' threads and registers hold."""
+    SMs' threads and registers hold. A forward pass that fits the TMA
+    ring's boxes runs its staged form there instead (:func:`_ring_geom`):
+    ``ring_blocks`` blocks in all (``ring_per_sm`` an SM), each with
+    ``threads`` consumers and a producer warp and a ring of
+    ``ring_stages`` buffers (0: no ring)."""
     lb: int
     words: int
     rbits: int
@@ -1332,6 +1343,9 @@ class PassGeom:
     static_bytes: int
     lut_bytes: int
     direct_blocks: int
+    ring_stages: int = 0
+    ring_blocks: int = 0
+    ring_per_sm: int = 0
 
     @property
     def stage_bytes(self) -> int:
@@ -1348,6 +1362,13 @@ class PassGeom:
     def resident(self) -> int:
         """Tiles an SM holds at once (blocks x ring stages)."""
         return self.per_sm * self.stages
+
+    @property
+    def ring_bytes(self) -> int:
+        """Shared memory of one TMA-ring block: its buffers, aligned to
+        the swizzle's period, its phase tables and its static tables."""
+        return self.ring_stages * self.stage_bytes + PK_RING_ALIGN \
+            + self.lut_bytes + self.static_bytes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1381,8 +1402,10 @@ class PkPlan:
                      if g is not None)
 
     def geom(self, kind: int) -> PassGeom:
-        return {PASS_TILE: self.tile, PASS_MID: self.mid,
-                PASS_STRIDED: self.strided}[kind]
+        return getattr(self, _GEOM_FIELDS[kind])
+
+
+_GEOM_FIELDS = {PASS_TILE: "tile", PASS_MID: "mid", PASS_STRIDED: "strided"}
 
 
 def _pass_geom(lb: int, words: int, planes: int, tiles: int, members: int,
@@ -1420,6 +1443,37 @@ def _pass_geom(lb: int, words: int, planes: int, tiles: int, members: int,
                                   blocks, per_sm, PK_STATIC_BYTES[planes],
                                   lut_bytes, direct))
     return None if best is None else best[1]
+
+
+def _ring_geom(g: PassGeom, kind: int, shape: tuple, n: int, members: int,
+               sms: int) -> PassGeom:
+    """``g`` with the forward's TMA ring where its tile fits the ring's
+    boxes (csrc/packed_phase.cu::ring_fits: a tile pass's 2^lb words a
+    plane as 128-byte rows, 8 <= lb <= 13; a middle or strided tile's
+    rows of 16-1024 bytes, at most 256 of them) and its consumers one
+    block: of the blocks an SM that registers allow (two at r <= 4, as
+    the kernel's launch bounds, else one), the most that leave each the
+    ring's least depth, then the deepest ring those fit (the producer
+    keeps up to depth - 1 tiles loading while one computes); a grid of
+    that many blocks an SM, and no more blocks than member x tile pairs."""
+    lb, lcp, _, rb = shape
+    if kind == PASS_TILE:
+        fits = 8 <= lb <= 13
+    else:
+        fits = 2 <= lcp <= 8 and rb <= 8 and lb >= 5
+    if not fits or g.threads > PK_RING_CONSUMERS \
+            or (members << n) >> 5 >= 2**31:
+        return g
+    lo, hi = PK_RING_STAGES
+    for per_sm in range(2 if g.rbits <= 4 else 1, 0, -1):
+        for stages in range(hi, lo - 1, -1):
+            r = dataclasses.replace(
+                g, ring_stages=stages, ring_per_sm=per_sm,
+                ring_blocks=min(members * g.tiles, per_sm * sms))
+            if r.ring_bytes <= SMEM_BLOCK and \
+                    per_sm * (r.ring_bytes + SMEM_RESERVED) <= SMEM_SM:
+                return r
+    return g
 
 
 @functools.lru_cache(maxsize=256)
@@ -1470,7 +1524,15 @@ def pk_plan(n_qubits: int, planes: int, n_diag: int, members: int = 1,
                                         mid, strided))
     if best is None:
         raise ValueError(f"{n_qubits} qubits do not fit the pass kernels")
-    return best[1]
+    geo = best[1]
+    if planes != 2:  # the backward keeps its cp.async ring
+        return geo
+    return dataclasses.replace(geo, **{
+        field: _ring_geom(geo.geom(kind), kind,
+                          _pass_shape(kind, n, geo.k, geo.lc, geo.k2), n,
+                          members, sms)
+        for kind, field in _GEOM_FIELDS.items()
+        if geo.geom(kind) is not None})
 
 
 def _op_bits(op) -> int:
@@ -1571,12 +1633,14 @@ def _pass_layout(plan_key: tuple, n_qubits: int, planes: int,
                  n_diag: int, n_x: int = None, members: int = 1,
                  sms: int = H100_SMS):
     """For a plan (packed op rows as a tuple) and ``planes`` (2 forward,
-    4 backward) over ``members`` states: (k, lc, passes int32 [n_pass, 9]
+    4 backward) over ``members`` states: (k, lc, passes int32 [n_pass, 10]
     = (kind, first op row, op count, blocks per member, partial offset,
     partial width, register bits, threads, ring stages: 0 for a pass of
-    one round, which runs direct), op table [n_ops, 6] (the rows with
-    local masks and, last, their round's mask), slot table, partial
-    floats per stage and member), the geometry from :func:`pk_plan`
+    one round, which runs direct, ring: 1 for a staged forward pass on the
+    TMA ring, whose blocks then cover all members), op table [n_ops, 6]
+    (the rows with local masks and, last, their round's mask), slot
+    table, partial floats per stage and member), the geometry from
+    :func:`pk_plan`
     (whose k2 the middle passes use). Backward blocks write their partial
     sums at (offset + block * width + column): a tile pass's columns are
     its ops, then S_0..S_{n_diag-1} and S0. The slot table (int32, flat)
@@ -1595,16 +1659,20 @@ def _pass_layout(plan_key: tuple, n_qubits: int, planes: int,
     first, off = 0, 0
     for i, (kind, ops) in enumerate(passes):
         if kind == PASS_CROSS:
-            blocks, shape = _cross_blocks(n_qubits), (0, 0, 0)
+            blocks, shape = _cross_blocks(n_qubits), (0, 0, 0, 0)
         else:
             g = geo.geom(kind)
             local = table[first:first + len(ops)]
             masks = _pass_rounds([int(r[2]) | int(r[3]) for r in local],
                                  g.lb, g.rbits)
             rounds[first:first + len(ops), 0] = masks
-            one = len(set(masks)) <= 1
-            blocks = g.direct_blocks if one else g.blocks
-            shape = (g.rbits, g.threads, 0 if one else g.stages)
+            if len(set(masks)) <= 1:
+                blocks, stages, ring = g.direct_blocks, 0, 0
+            elif g.ring_stages:
+                blocks, stages, ring = g.ring_blocks, g.ring_stages, 1
+            else:
+                blocks, stages, ring = g.blocks, g.stages, 0
+            shape = (g.rbits, g.threads, stages, ring)
         width = len(ops) + (n_diag + 1 if i == 0 else 0)
         desc.append((kind, first, len(ops), blocks, off, width) + shape)
         for col, op in enumerate(ops):
@@ -1615,7 +1683,7 @@ def _pass_layout(plan_key: tuple, n_qubits: int, planes: int,
     slots = np.concatenate([starts, np.asarray(
         [x for v in locs for loc in v for x in loc], np.int64)]
     ).astype(np.int32)
-    return (k, lc, np.asarray(desc, np.int32).reshape(-1, 9),
+    return (k, lc, np.asarray(desc, np.int32).reshape(-1, 10),
             np.concatenate([table, rounds], axis=1), slots, off)
 
 
@@ -1674,6 +1742,13 @@ def _device_layout(plan, n_qubits, planes, n_diag, n_x, members, device):
     return k, k2, lc, desc, ops, slots, stride
 
 
+def ring_passes(desc: np.ndarray, n_steps: int) -> int:
+    """The passes of a forward chain of ``n_steps`` steps on the TMA ring,
+    by its pass table ``desc`` (:func:`_pass_layout`): each step's ring
+    passes, and the last stage's tile pass (its phase alone)."""
+    return n_steps * int(desc[:, 9].sum()) + int(desc[0, 9])
+
+
 def _packed_forward_cuda(psi_re, psi_im, udm, tx, h0th, signs, plan,
                          n_qubits, what):
     """One forward chain on the card (K3-K6): the state [B, d] is copied
@@ -1696,6 +1771,9 @@ def _packed_forward_cuda(psi_re, psi_im, udm, tx, h0th, signs, plan,
         raise RuntimeError(f"{what} forward launch failed: "
                            f"{lib.dq_pk_error_string(code).decode()} "
                            f"({code})")
+    ring = ring_passes(desc, tx.shape[0])
+    if ring:
+        profiling.count("pk_forward_ring", ring)
     return out_re, out_im
 
 

@@ -35,6 +35,10 @@ CASES = (("K3 18q ring, T=30", "K3", 18, 30, None, "ring", 50),
          ("K5 19q ring, T=30", "K5", 19, 30, None, "ring", 20),
          ("K5 20q ring, T=30", "K5", 20, 30, None, "ring", 20),
          ("K5 20q ring, T=30, B=8", "K5", 20, 30, 8, "ring", 10),
+         # the 20q MaxCut cells' batches: the seed population and the MC
+         # estimator's 80 branches
+         ("K5 20q ring, T=30, B=16", "K5", 20, 30, 16, "ring", 10),
+         ("K5 20q ring, T=100, B=80", "K5", 20, 100, 80, "ring", 3),
          ("K5 24q ring, T=30", "K5", 24, 30, None, "ring", 5),
          ("K4 24q ring, T=1", "K4", 24, 1, None, "ring", 30),
          ("K6 20q molecule set, T=30", "K6", 20, 30, None, "molecule", 10),

@@ -227,16 +227,19 @@ def test_pass_plan_applies_the_plan(n, plan, planes):
     assert sorted(int(o[0]) for _, p in passes for o in p) \
         == list(range(len(ops)))
     assert len(desc) == len(passes) and desc[0][0] == tfp.PASS_TILE
-    for kind, first, count, blocks, off, width, rbits, threads, stages \
-            in desc:
+    for kind, first, count, blocks, off, width, rbits, threads, stages, \
+            ring in desc:
         if kind != tfp.PASS_CROSS:
             g = geo.geom(kind)
             assert g.lb == tfp._pass_shape(kind, n, k, lc, geo.k2)[0]
             assert (rbits, threads) == (g.rbits, g.threads)
-            # a pass of one round runs direct: no ring, more blocks
-            assert (blocks, stages) in ((g.blocks, g.stages),
-                                        (g.direct_blocks, 0))
+            # a pass of one round runs direct: no ring, more blocks; a
+            # staged forward pass that fits the TMA ring runs there
+            assert (blocks, stages, ring) in (
+                (g.blocks, g.stages, 0), (g.direct_blocks, 0, 0),
+                (g.ring_blocks, g.ring_stages, 1))
             assert g.block_bytes <= tfp.SMEM_BLOCK  # ring + tables
+            assert g.ring_bytes <= tfp.SMEM_BLOCK
     rng = np.random.default_rng(n)
     re, im = (torch.tensor(rng.standard_normal(2**n)) for _ in range(2))
     tx_row = 0.7 * rng.standard_normal(len(ops))

@@ -22,8 +22,10 @@ from diffquantum_tpu_torch.models import maxcut as tmaxcut
 from diffquantum_tpu_torch.ops import fused_product as tfp
 
 # the kernels' limits (csrc/packed_phase.cu: kMaxThreads, kMaxStages,
-# kMaxRBits) and CUDA's (grid y, grid x, block size)
+# kMaxRBits; the TMA ring's kRingConsumers, kMaxRing) and CUDA's (grid y,
+# grid x, block size)
 KERNEL_THREADS, KERNEL_STAGES, KERNEL_RBITS = 512, 4, 5
+RING_CONSUMERS, RING_STAGES = 256, 4
 GRID_Y, GRID_X, BLOCK = 65535, 2**31 - 1, 1024
 
 
@@ -179,9 +181,18 @@ def test_plan_fits_the_card(n, planes):
                 if kind != tfp.PASS_CROSS:
                     g = geo.geom(kind)
                     one = len(set(table[first:first + count, 5])) == 1
+                    # direct, the TMA ring (the forward's staged passes
+                    # that fit it) or the cp.async ring
+                    ring = not one and g.ring_stages > 0
+                    assert not ring or planes == 2
+                    stages = 0 if one else (g.ring_stages if ring
+                                            else g.stages)
                     assert tuple(int(v) for v in row[6:]) == (
-                        g.rbits, g.threads, 0 if one else g.stages)
-                    assert blocks == (g.direct_blocks if one else g.blocks)
+                        g.rbits, g.threads, stages, int(ring))
+                    assert blocks == (g.direct_blocks if one else
+                                      g.ring_blocks if ring else g.blocks)
+                else:
+                    assert int(row[9]) == 0
                 first += count
             # the backward's partials and the reduction's grid
             warps = n_steps * members * (n + 1) \
@@ -280,6 +291,142 @@ def test_pass_layout_multiplies_out(n, planes, passes):
                                    atol=1e-12)
 
 
+def _ring_shares(blocks, pairs):
+    """The contiguous member-major share of each TMA-ring block
+    (pass_ring: [W g / G, W (g + 1) / G) of the W member x tile pairs)."""
+    return [range(pairs * g // blocks, pairs * (g + 1) // blocks)
+            for g in range(blocks)]
+
+
+def _ring_box(kind, n, k, lc, k2, w):
+    """pass_ring's ring_box: pair w's (member, tile) and its box (c0, c1)
+    in the pass's 2-D view of the [B, d] state."""
+    lb, lcp, k1, rb = tfp._pass_shape(kind, n, k, lc, k2)
+    b, t = w >> (n - lb), w & ((1 << (n - lb)) - 1)
+    if kind == tfp.PASS_TILE:
+        return b, t, 0, (b << (n - 5)) + (t << (lb - 5))
+    tl = k1 - lcp
+    return b, t, (t & ((1 << tl) - 1)) << lcp, \
+        (b << (n - k1)) + ((t >> tl) << rb)
+
+
+@pytest.mark.parametrize("n", [18, 20, 24])
+@pytest.mark.parametrize("members", [1, 3, 16, 80])
+def test_ring_grid_covers_each_pair_once(n, members):
+    """The forward's staged passes at 18-24 qubits run on the TMA ring,
+    whose blocks' contiguous shares cover every (member, tile) pair of a
+    pass exactly once, at most the card's blocks an SM times its SMs and
+    no block idle; the backward keeps its ring."""
+    geo = tfp.pk_plan(n, 2, n, members)
+    for g in geo.passes:
+        pairs = members * g.tiles
+        assert g.ring_stages and g.ring_per_sm in (1, 2)
+        assert g.ring_blocks == min(pairs, g.ring_per_sm * tfp.H100_SMS)
+        shares = _ring_shares(g.ring_blocks, pairs)
+        assert all(len(r) >= 1 for r in shares)
+        assert [w for r in shares for w in r] == list(range(pairs))
+    assert not any(g.ring_stages for g in tfp.pk_plan(n, 4, n,
+                                                      members).passes)
+
+
+@pytest.mark.parametrize("n", [18, 19, 20, 24])
+@pytest.mark.parametrize("members", [1, 3, 16, 80])
+def test_ring_fits_the_sm(n, members):
+    """A TMA-ring block's buffers (aligned to the 1024-byte swizzle
+    period), phase tables and static tables fit one block's 227 KB, and
+    its blocks an SM fit the SM's 228 KB; its register bits are the
+    kernel's (pass_ring<3..5>); its consumers are whole warps (one thread
+    a group, at most 256) beside one producer warp, and the
+    blocks an SM fit its threads and, at the kernel's launch bounds (two
+    blocks of 288 threads at r <= 4, one above), its registers."""
+    for g in tfp.pk_plan(n, 2, n, members).passes:
+        assert g.ring_bytes == (g.ring_stages * 4 * g.words << g.lb) \
+            + tfp.PK_RING_ALIGN + g.lut_bytes + tfp.PK_STATIC_BYTES[2]
+        assert g.ring_bytes <= tfp.SMEM_BLOCK
+        assert g.ring_per_sm * (g.ring_bytes + tfp.SMEM_RESERVED) \
+            <= tfp.SMEM_SM
+        assert g.threads % 32 == 0 and 3 <= g.rbits <= KERNEL_RBITS
+        assert 1 << (g.lb - g.rbits) <= g.threads <= RING_CONSUMERS
+        assert g.ring_per_sm <= (2 if g.rbits <= 4 else 1)
+        assert g.ring_per_sm * (RING_CONSUMERS + 32) <= 2048
+
+
+@pytest.mark.parametrize("n", [18, 20, 24])
+@pytest.mark.parametrize("members", [1, 16, 80])
+def test_ring_depth_overlaps_the_tiles(n, members):
+    """Every staged forward pass at 18-24 qubits is on the ring, two to
+    four buffers deep, so wherever a block has more than one tile the
+    next one loads while this one's rounds run; direct passes (one
+    round) stay off it."""
+    plan = _ring_plan(n)
+    geo = tfp.pk_plan(n, 2, n, members)
+    _, _, desc, table, _, _ = tfp._pass_layout(
+        tuple(map(tuple, plan.tolist())), n, 2, n, None, members)
+    first = 0
+    for row in desc:
+        kind, count = int(row[0]), int(row[2])
+        one = len(set(table[first:first + count, 5])) == 1
+        first += count
+        if kind == tfp.PASS_CROSS:
+            continue
+        assert int(row[9]) == (0 if one else 1)
+        if not one:
+            g = geo.geom(kind)
+            assert 2 <= int(row[8]) <= RING_STAGES
+            assert int(row[8]) == g.ring_stages
+            if members * g.tiles > int(row[3]):
+                assert max(map(len, _ring_shares(
+                    int(row[3]), members * g.tiles))) > 1
+
+
+@pytest.mark.parametrize("members,n_steps", [(1, 30), (1, 100), (16, 30),
+                                             (80, 100)])
+def test_ring_counter_reads_two_passes_a_step(members, n_steps):
+    """The ``pk_forward_ring`` count of a 20q ring MaxCut forward chain
+    (the benchmark's pk_ring_passes_per_epoch): 2T + 1, both passes of
+    every step and the last stage's phase; none in the backward's table."""
+    key = tuple(map(tuple, _ring_plan(20).tolist()))
+    for planes, want in ((2, 2 * n_steps + 1), (4, 0)):
+        desc = tfp._pass_layout(key, 20, planes, 20, None, members)[2]
+        assert tfp.ring_passes(desc, n_steps) == want
+
+
+@pytest.mark.parametrize("n", [12, 14])
+@pytest.mark.parametrize("passes", [(2,), (3,)], indirect=True)
+def test_ring_boxes_are_the_tiles(n, passes):
+    """Each ring pair's box, read from the pass's 2-D view of a [B, d]
+    state (a tile pass: 2^lb / 32 rows of 32 words; a middle or strided
+    pass: 2^rb rows of 2^lcp words at a 2^k1 stride), holds the tile's
+    amplitudes in its local order (amp_index), at B = 3, two and three
+    passes a step (a tile pass of fewer than 2^8 words a plane stays off
+    the ring)."""
+    members = 3
+    geo = tfp.pk_plan(n, 2, n, members)
+    assert len(geo.passes) in passes
+    flat = np.arange(members << n)
+    assert any(g.ring_stages for g in geo.passes)
+    for g in geo.passes:
+        kind = {id(geo.tile): tfp.PASS_TILE, id(geo.mid): tfp.PASS_MID,
+                id(geo.strided): tfp.PASS_STRIDED}[id(g)]
+        if not g.ring_stages:  # a tile pass under 2^8 words a plane
+            assert kind == tfp.PASS_TILE and g.lb < 8
+            continue
+        lb, lcp, k1, rb = tfp._pass_shape(kind, n, geo.k, geo.lc, geo.k2)
+        l_ = np.arange(1 << lb)
+        tl = k1 - lcp
+        for w in range(members * g.tiles):
+            b, t, c0, c1 = _ring_box(kind, n, geo.k, geo.lc, geo.k2, w)
+            want = (b << n) + ((l_ & ((1 << lcp) - 1))
+                               | ((t & ((1 << tl) - 1)) << lcp)
+                               | ((l_ >> lcp) << k1) | ((t >> tl) << (k1 + rb)))
+            if kind == tfp.PASS_TILE:
+                box = flat.reshape(-1, 32)[c1:c1 + (1 << (lb - 5))]
+            else:
+                box = flat.reshape(-1, 1 << k1)[c1:c1 + (1 << rb),
+                                                c0:c0 + (1 << lcp)]
+            assert np.array_equal(box.reshape(-1), want)
+
+
 def test_zero_drift_flag():
     """The ring MaxCut has no drift: packed_chain_inputs hands out the
     cached zero h0th, which the kernels are told not to read; any other
@@ -296,3 +443,42 @@ def test_zero_drift_flag():
     z.add_(0.0)  # written in place: no longer known to be zero
     assert tfp._drift_flag(z) == 1
     tfp._ZERO_DRIFT.clear()
+
+
+# the forward's state error against the plain version on the card
+# (chip_smoke.py's TOL_PK["fwd"])
+TOL_PK_FWD = 1e-7
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("members,n_steps", [(80, 100), (3, 30)])
+def test_ring_forward_matches_plain_on_card(members, n_steps):
+    """K5's batched forward, its staged passes on the TMA ring, against
+    the plain version at the 20q MC cell's shape (the 80-branch batch,
+    T = 100) and at B = 3 (264 blocks over 768 pairs a pass: shares that
+    end inside a member), per-member rows; 2T + 1 passes on the ring."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the pass kernels have no CPU mode")
+    from diffquantum_tpu_torch.ops import fused_chunked as tfc
+    from diffquantum_tpu_torch.ops.cpx import CP
+    from diffquantum_tpu_torch.utils import profiling
+    n = 20
+    prob = tmaxcut.build_maxcut(n, tmaxcut.ring_graph(n), n_basis=6,
+                                device="cuda")
+    rng = np.random.default_rng(members)
+    coeff = torch.tensor(0.4 * rng.standard_normal(
+        (members,) + prob.envelope.coeff_shape), dtype=torch.float32,
+        device="cuda")
+    ud, tx, h0th, signs, qubits, kinds = tprod.packed_chain_inputs(
+        prob.ham, prob.envelope, coeff, 0.0, prob.T, prob.T, n_steps)
+    psi = CP(prob.psi0.re.expand(members, -1).contiguous(),
+             prob.psi0.im.expand(members, -1).contiguous())
+    ring0 = profiling.counters()["pk_forward_ring"]
+    out = tfc.chunked_evolve_mega_batched(psi, ud, tx, h0th, signs, qubits,
+                                          n, kinds)
+    torch.cuda.synchronize()
+    assert profiling.counters()["pk_forward_ring"] - ring0 == 2 * n_steps + 1
+    ref = tfc.chunked_evolve_mega_batched_plain(psi, ud, tx, h0th, signs,
+                                                qubits, n, kinds)
+    for got, want in ((out.re, ref.re), (out.im, ref.im)):
+        assert float((got - want).abs().max()) <= TOL_PK_FWD
